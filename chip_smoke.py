@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one card and check it.
+"""Drive the PyTorch/CUDA port's main paths on one card and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -8,12 +8,18 @@ needs one CUDA card; without one, or without the port's sources beside it,
 it exits non-zero and prints no result.  It imports nothing of JAX or of the
 JAX package.  Phases, each fatal on failure:
 
-1. build   — ``nvcc`` compiles ``src/repro_torch/csrc/classify_fused.cu``
-             for sm_90a; prints the seconds and the ``-Xptxas -v`` summary.
+1. build   — ``nvcc`` compiles the five ``src/repro_torch/csrc/*.cu``
+             kernels for sm_90a, all at once; prints the seconds and the
+             ``-Xptxas -v`` summary of each.
 2. kernel  — random full-width tables for four zoo slots (one empty) at
-             B in {1, 300, 4096}: the kernel's codes, labels and SVM sums
-             must equal the torch twin's bit for bit.
-3. path    — a zoo at the paper's profile (``PlaneProfile(max_versions=4)``)
+             B in {1, 300, 4096}: the fused kernel's codes, labels and SVM
+             sums must equal the torch twin's bit for bit.
+3. stages  — the same tables and batches: ``tree_walk``, ``tcam_match`` (at
+             the first, a middle and the last layer), ``forest_vote`` (on
+             codes that hit leaves) and ``svm_lookup`` (with a bias and
+             features outside [0, levels)) each equal their plain version
+             bit for bit.
+4. path    — a zoo at the paper's profile (``PlaneProfile(max_versions=4)``)
              built with the port's own models and translator: an 8-tree
              random forest and a deeper decision tree on the cicids-17
              stand-in, a one-vs-rest linear SVM on the digits stand-in, and
@@ -23,11 +29,27 @@ JAX package.  Phases, each fatal on failure:
              bit-identical to ``SwitchEngine(mode="ref")``, DT/RF equal to
              ``predict``, SVM within the fixed-point slack, the empty slot
              answers -1, passthrough untouched, one launch per classify.
-4. timing  — CUDA events over many launches at B = 4096: the kernel, the
-             twin, the bound from the bytes this run's data touches, and
-             requests/s end to end through ``ZooServer.classify``.
+5. staged  — the same zoo and traffic through ``ZooServer(mode="unfused")``
+             (3 launches per classify: walk, vote, SVM sums) and
+             ``ZooServer(mode="layerwise")`` (L + 2: one ``tcam_match`` per
+             layer), held to ``mode="ref"`` the same way.
+6. multi   — ``plan_zoo`` places the three versions over ``fat_tree(4)``,
+             host to host, on switches of 40 stage slots; the hop programs
+             (``build_zoo_device_programs``) run in path order through
+             ``DataplaneRuntime(SequentialPathExecutor(...))`` in the fused
+             and the layerwise mode: rslt, codes and svm_acc equal the
+             single switch in ``mode="ref"``, with hops x 1 and
+             hops x (L + 2) launches.
+7. timing  — CUDA events over many launches at B = 4096: each kernel, its
+             plain version, one PyTorch library call where one computes the
+             same function, and the bound from the bytes this run's data
+             touches; requests/s end to end through ``ZooServer`` in the
+             three modes and through the multi-switch runtime.
 
-Output: a ``kernels`` JSON line, the card's name and power limit, and last
+Each main path (4, 5, 6) runs with every kernel's launch count set to 0
+just before it and read just after; a kernel of the path that never
+launched fails the run.  Output: a ``paths`` JSON line, a ``kernels`` JSON
+line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -45,23 +67,55 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FULL = dict(max_versions=4)      # the paper's default profile, four slots
 FEATURES = 60
 SVM_KW = dict(multi_class="ovr", C=1e4, lr=0.01, epochs=400)
+BATCH = 4096                     # requests per batch on the main paths
+SWITCH_STAGES = 40               # stage slots per switch of the multi path
+REPLACES = {                     # the TPU kernel each CUDA kernel replaces
+    "classify_fused": "src/repro/kernels/classify_fused.py:166",
+    "tree_walk": "src/repro/kernels/tree_walk.py:94",
+    "tcam_match": "src/repro/kernels/tcam_match.py:81",
+    "forest_vote": "src/repro/kernels/forest_vote.py:69",
+    "svm_lookup": "src/repro/kernels/svm_lookup.py:71",
+}
 
 
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
 
 
+def kernels():
+    """Every kernel wrapper of the port, by name (each counts its launches
+    in ``.launches``)."""
+    from repro_torch.kernels.classify_fused import classify_fused
+    from repro_torch.kernels.forest_vote import forest_vote
+    from repro_torch.kernels.svm_lookup import svm_lookup
+    from repro_torch.kernels.tcam_match import tcam_match
+    from repro_torch.kernels.tree_walk import tree_walk
+
+    return {"classify_fused": classify_fused, "tree_walk": tree_walk,
+            "tcam_match": tcam_match, "forest_vote": forest_vote,
+            "svm_lookup": svm_lookup}
+
+
+def launches() -> dict:
+    return {k: f.launches for k, f in kernels().items()}
+
+
+def zero_launches() -> None:
+    for f in kernels().values():
+        f.launches = 0
+
+
 # ----------------------------------------------------------------- phases
 def build_phase():
     from repro_torch.kernels.build import build
-    from repro_torch.kernels.classify_fused import SOURCE
 
-    lib = build(SOURCE)[SOURCE]
-    print(f"built {lib.path.name} in {lib.build_seconds:.2f} s")
-    for line in lib.log.splitlines():
-        if "ptxas" in line:
-            print("  " + line.strip())
-    return lib
+    libs = build(*kernels())
+    for name, lib in libs.items():
+        print(f"built {lib.path.name} in {lib.build_seconds:.2f} s")
+        for line in lib.log.splitlines():
+            if "ptxas" in line:
+                print("  " + line.strip())
+    return libs
 
 
 def random_tables(rng, prof, torch, device, empty_slot):
@@ -110,7 +164,7 @@ def kernel_phase(prof, seed, device):
         "code_value", "code_mask", "fid", "f_lo", "f_hi", "set_bit", "valid",
         "pred_codes", "pred_labels", "pred_valid", "weights", "lut", "bias")))
     C = prof.max_classes
-    for B in (1, 300, 4096):
+    for B in (1, 300, BATCH):
         codes = torch.from_numpy(rng.integers(0, 2**12, (B, prof.max_trees))
                                  .astype(np.int32)).to(device)
         feats = torch.from_numpy(rng.integers(0, prof.levels, (B, prof.max_features))
@@ -134,6 +188,68 @@ def kernel_phase(prof, seed, device):
         print(f"B={B}: kernel == twin bit for bit "
               f"({hits} packets changed codes, {int((vid == 2).sum())} "
               "on the empty slot)")
+
+
+def stage_phase(prof, seed, device):
+    """Each staged kernel against its plain version on random full-width
+    tables (the operand image the plane would install)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import tiling
+    from repro_torch.kernels.forest_vote import forest_vote, forest_vote_plain
+    from repro_torch.kernels.svm_lookup import svm_lookup, svm_lookup_plain
+    from repro_torch.kernels.tcam_match import tcam_match, tcam_match_plain
+    from repro_torch.kernels.tree_walk import tree_walk, tree_walk_plain
+
+    rng = np.random.default_rng(seed + 7)
+    tabs = random_tables(rng, prof, torch, device, empty_slot=2)
+    V, T, L = prof.max_versions, prof.max_trees, prof.max_layers
+    lv, H = prof.levels, prof.max_hyperplanes
+    bias = torch.from_numpy(rng.integers(-10_000, 10_000, (V, H))
+                            .astype(np.int32)).to(device)
+    img = tiling.prep_classify_fused(*(tabs[k] for k in (
+        "code_value", "code_mask", "fid", "f_lo", "f_hi", "set_bit", "valid",
+        "pred_codes", "pred_labels", "pred_valid", "weights", "lut")), bias)
+    shift, C = tabs["layer_shift"], prof.max_classes
+
+    def same(what, got, want):
+        torch.cuda.synchronize()
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{what} != its plain version in "
+                                     f"{int((g != w).sum())} places")
+
+    for B in (1, 300, BATCH):
+        def ints(lo, hi, shape):
+            return torch.from_numpy(rng.integers(lo, hi, shape)
+                                    .astype(np.int32)).to(device)
+        codes = ints(0, 2**12, (B, T))
+        feats = ints(0, lv, (B, prof.max_features))
+        vid = ints(0, V, B)
+        same(f"tree_walk B={B}", tree_walk(codes, feats, vid, shift, img.walk),
+             tree_walk_plain(codes, feats, vid, shift, img.walk))
+        for layer in (0, L // 2, L - 1):
+            same(f"tcam_match B={B} layer={layer}",
+                 tcam_match(codes, feats, vid, shift, img.walk, layer),
+                 tcam_match_plain(codes, feats, vid, shift, img.walk, layer))
+        # codes that hit a leaf of their version (80%), else stay random
+        v = vid.long()
+        hits = img.pred_codes[v[:, None], torch.arange(T, device=device),
+                              ints(0, prof.max_leaves, (B, T)).long()]
+        leaf_codes = torch.where(ints(0, 5, (B, T)) > 0, hits, codes)
+        got = forest_vote(leaf_codes, vid, img.leaves, C)
+        same(f"forest_vote B={B}", got,
+             forest_vote_plain(leaf_codes, vid, img.leaves, C))
+        # features outside [0, levels) add 0
+        wide = torch.where(ints(0, 10, feats.shape) == 0,
+                           ints(lv, lv + 100, feats.shape), feats)
+        wide[::7, 0] = -1
+        same(f"svm_lookup B={B}", svm_lookup(wide, vid, img.svm),
+             svm_lookup_plain(wide, vid, img.svm))
+        print(f"B={B}: tree_walk, tcam_match (layers 0, {L // 2}, {L - 1}), "
+              f"forest_vote ({int((got[1] != 0).sum())} leaf hits) and "
+              "svm_lookup == plain bit for bit")
 
 
 def make_zoo(seed):
@@ -203,39 +319,55 @@ def traffic(rng, zoo, test_sets, B):
     return pb, X, vid, fwd.numpy()
 
 
-def main_path_phase(prof, seed, device, models, programs, test_sets):
-    """The main path through the port's entry points; returns what timing
-    needs.  Launch counts are checked per call here and read as a whole by
-    the caller."""
+def per_classify(mode, prof) -> dict:
+    """The launches one classify makes in ``mode``, by kernel."""
+    L = prof.max_layers
+    return {None: {"classify_fused": 1},
+            "unfused": {"tree_walk": 1, "forest_vote": 1, "svm_lookup": 1},
+            "layerwise": {"tcam_match": L, "forest_vote": 1,
+                          "svm_lookup": 1}}[mode]
+
+
+def checked(fn, want: dict, n_classify: int = 1):
+    """Run ``fn`` and check that it launched exactly ``n_classify`` times
+    the per-classify launches ``want`` of each kernel, and nothing else."""
+    import torch
+
+    before = launches()
+    out = fn()
+    torch.cuda.synchronize()
+    got = {k: n - before[k] for k, n in launches().items()}
+    expected = {k: n_classify * want.get(k, 0) for k in got}
+    if got != expected:
+        raise AssertionError(f"kernel launches {got}, expected {expected}")
+    return out
+
+
+def main_path_phase(prof, seed, device, models, programs, test_sets,
+                    mode=None):
+    """The main path through the port's entry points, in classify ``mode``;
+    returns what timing needs.  Launch counts are checked per call here and
+    read as a whole by the caller."""
     import numpy as np
     import torch
     from repro_torch.core.plane import SwitchEngine
-    from repro_torch.kernels.classify_fused import classify_fused
     from repro_torch.serving import ZooServer
 
     fields = ("rslt", "codes", "svm_acc")
+    want_n = per_classify(mode, prof)
     rng = np.random.default_rng(seed + 1)
-    zoo = ZooServer(prof, device=device)
+    zoo = ZooServer(prof, mode=mode, device=device)
     for v, p in programs.items():
         zoo.install(p, vid=v)
     oracle = SwitchEngine(prof, mode="ref", device=device)
 
-    def checked(fn, n_expected=1):
-        before = classify_fused.launches
-        out = fn()
-        torch.cuda.synchronize()
-        got = classify_fused.launches - before
-        if got != n_expected:
-            raise AssertionError(f"{got} kernel launches, expected {n_expected}")
-        return out
-
-    B = 4096
+    B = BATCH
     pb, X, vid, fwd = traffic(rng, zoo, test_sets, B)
-    out = checked(lambda: zoo.runtime.run(pb))
+    out = checked(lambda: zoo.runtime.run(pb), want_n)
     want = oracle.classify(zoo.packed, pb)
     for f in fields:
         if not torch.equal(getattr(out, f), getattr(want, f)):
-            raise AssertionError(f"ZooServer != mode ref on {f}")
+            raise AssertionError(f"ZooServer({mode}) != mode ref on {f}")
     rslt = out.rslt.cpu().numpy()
     req = ~fwd
     for v, model in models.items():
@@ -255,34 +387,86 @@ def main_path_phase(prof, seed, device, models, programs, test_sets):
     print(f"B={B}: ZooServer == mode ref on {', '.join(fields)}; "
           f"{int(fwd.sum())} passthrough packets untouched")
 
-    for n in (1, 7, 300, 4097):
+    for n in (1, 7, 300, BATCH + 1):
         pbn, Xn, vn, _ = traffic(rng, zoo, test_sets, n)
         mids = pbn.mid.numpy()
-        got = checked(lambda: zoo.classify(Xn, mid=mids, vid=vn))
+        got = checked(lambda: zoo.classify(Xn, mid=mids, vid=vn), want_n)
         want = oracle.classify(zoo.packed, zoo.make_request(Xn, mid=mids,
                                                             vid=vn))
         if not np.array_equal(got, want.rslt.cpu().numpy()):
             raise AssertionError(f"classify != mode ref at B={n}")
     reqs = []
-    for n in (1, 7, 300, 4097):
+    for n in (1, 7, 300, BATCH + 1):
         pbn, Xn, vn, _ = traffic(rng, zoo, test_sets, n)
         reqs.append((Xn, pbn.mid.numpy(), vn))
-    got = checked(lambda: zoo.classify_coalesced(reqs))
+    got = checked(lambda: zoo.classify_coalesced(reqs), want_n)
     for (Xn, mn, vn), g in zip(reqs, got):
         w = oracle.classify(zoo.packed, zoo.make_request(Xn, mid=mn, vid=vn))
         if not np.array_equal(g, w.rslt.cpu().numpy()):
             raise AssertionError("classify_coalesced != mode ref")
-    print("ragged B in (1, 7, 300, 4097): classify and classify_coalesced "
-          "== mode ref, one launch per call")
+    print(f"ragged B in (1, 7, 300, {BATCH + 1}): classify and "
+          f"classify_coalesced == mode ref; launches per classify {want_n}")
     return zoo, pb
 
 
+def multi_switch_phase(prof, device, programs, zoo, pb):
+    """plan_zoo over fat_tree(4), host to host; the hop programs on the
+    card; the sequential path in the fused and layerwise modes against the
+    single switch in mode ref.  Returns the two runtimes."""
+    import torch
+    from repro_torch.core.distributed_plane import build_zoo_device_programs
+    from repro_torch.core.plane import SwitchEngine
+    from repro_torch.core.planner import DeviceModel, plan_zoo
+    from repro_torch.core.topology import fat_tree
+    from repro_torch.runtime import DataplaneRuntime, SequentialPathExecutor
+
+    net = fat_tree(4)
+    hosts = net.hosts()
+    vids = sorted(programs)
+    t0 = time.perf_counter()
+    plans = plan_zoo([programs[v] for v in vids], net, hosts[0], hosts[-1],
+                     default_device=DeviceModel(n_stages=SWITCH_STAGES))
+    print(f"plan_zoo in {time.perf_counter() - t0:.3f} s, {SWITCH_STAGES} "
+          f"stage slots per switch, path {' -> '.join(plans[0].path)}")
+    for v, plan in zip(vids, plans):
+        per = plan.device_stages()
+        print(f"  vid {v} ({programs[v].kind}, {len(programs[v].stages())} "
+              "stages): " + ", ".join(f"{d} {len(per[d])}" for d in plan.path
+                                     if d in per)
+              + f"; objective {plan.objective:.6g}")
+    t0 = time.perf_counter()
+    devs, dps = build_zoo_device_programs([programs[v] for v in vids], plans,
+                                          prof, device)
+    print(f"{len(devs)} hop programs built on the card in "
+          f"{time.perf_counter() - t0:.3f} s: {', '.join(devs)}")
+    if len(devs) < 3:
+        raise AssertionError(f"the zoo spans {len(devs)} switches, not >= 3")
+    want = SwitchEngine(prof, mode="ref", device=device).classify(zoo.packed,
+                                                                  pb)
+    runtimes = {}
+    for mode in (None, "layerwise"):
+        rt = DataplaneRuntime(SequentialPathExecutor(
+            dps, n_classes=prof.max_classes, mode=mode))
+        out = checked(lambda: rt.run(pb), per_classify(mode, prof),
+                      n_classify=len(dps))
+        for f in ("rslt", "codes", "svm_acc"):
+            if not torch.equal(getattr(out, f), getattr(want, f)):
+                raise AssertionError(f"multi-switch ({mode}) != the single "
+                                     f"switch on {f}")
+        print(f"B={pb.batch}, mode {mode or 'fused'}: {len(dps)} hops == the "
+              "single switch in mode ref on rslt, codes, svm_acc; launches "
+              f"{len(dps)} x {per_classify(mode, prof)}")
+        runtimes[mode] = rt
+    return runtimes
+
+
 def bytes_touched(zoo, pb, prof, torch):
-    """The least bytes the classify kernel must move on these inputs: each
-    input byte it needs read once, each output written once.  Walk records
-    count up to the furthest entry any packet of a version reads in each
-    (layer, tree) row; leaves count the entries found; the LUT counts the
-    (feature, level) cells the packets select."""
+    """The least bytes each kernel must move on these inputs: each input
+    byte it needs read once, each output written once.  Walk records count
+    up to the furthest entry any packet of a version reads in each (layer,
+    tree) row; leaves count the entries found; the LUT counts the (feature,
+    level) cells the packets select.  ``tcam_match`` is one launch, the mean
+    over the L layers of one walk."""
     from repro_torch.kernels import ref, tiling
 
     packed, dev = zoo.packed, zoo.engine.device
@@ -292,7 +476,7 @@ def bytes_touched(zoo, pb, prof, torch):
     H, lv = packed.svm_lut.shape[1], packed.svm_lut.shape[3]
     vid = torch.where((pbd.vid >= 0) & (pbd.vid < V), pbd.vid, 0).long()
     ops_ = packed.image.fused
-    cv, cm, fid, flo, fhi, bit, valid = tiling.unpack_classify_fused(ops_)[:7]
+    cv, cm, fid, flo, fhi, bit, valid = tiling.unpack_walk(ops_.walk)
     codes = pbd.codes.clone()
     rows = torch.zeros((V, L, T), dtype=torch.int64, device=dev)
     for l in range(L):
@@ -319,8 +503,15 @@ def bytes_touched(zoo, pb, prof, torch):
     cells = torch.stack([vid[:, None].expand(B, F),
                          torch.arange(F, device=dev).expand(B, F), x], -1)[inr]
     lut = int(torch.unique(cells, dim=0).shape[0]) * H * 4 + len(used) * H * 4
-    io = B * (8 * T + 4 * F + 4 + 4 + 4 * H) + 4 * L
-    return walk + leaves + lut + io
+    walk_io = B * (8 * T + 4 * F + 4)
+    return {
+        "classify_fused": walk + leaves + lut
+        + B * (8 * T + 4 * F + 4 + 4 + 4 * H) + 4 * L,
+        "tree_walk": walk + walk_io + 4 * L,
+        "tcam_match": walk / L + walk_io + 4,
+        "forest_vote": leaves + B * (8 * T + 4 + 4),
+        "svm_lookup": lut + B * (4 * F + 4 + 4 * H),
+    }
 
 
 def where_the_time_goes(step, torch, n=10):
@@ -360,68 +551,188 @@ def where_the_time_goes(step, torch, n=10):
                   f"{e.key[:70]}")
 
 
-def timing_phase(zoo, pb, prof, torch, n_iter=50):
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.classify_fused import classify_fused
+LIBRARY_NONE = {
+    "classify_fused": "no single PyTorch call computes walk, vote and SVM "
+                      "sums",
+    "tree_walk": "no PyTorch call computes a first-match ternary search "
+                 "over variable-length rows",
+    "tcam_match": "no PyTorch call computes a first-match ternary search "
+                  "over variable-length rows",
+    "forest_vote": "torch.searchsorted finds a leaf, but no single call "
+                   "also takes the weighted vote",
+}
 
+
+def ms(fn, n, torch, cycles_per_ms):
+    """Mean device ms per call of ``fn`` over ``n`` calls, by CUDA events.
+
+    The device first sleeps for longer than the host takes to enqueue the
+    ``n`` calls (1.5x a timed dry run of them), so the events time the
+    device's work back to back, not the host's launch path; that path's
+    cost shows end to end and in the profiler tables instead."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(1.5 * host_ms * cycles_per_ms) + 1000)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def sleep_cycles_per_ms(torch) -> float:
+    """The card's clock cycles per ms under ``torch.cuda._sleep``, timed by
+    CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(10**7)
+    end.record()
+    torch.cuda.synchronize()
+    return 10**7 / start.elapsed_time(end)
+
+
+def max_abs_err(got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return max(int((g.long() - w.long()).abs().max()) for g, w in
+               zip(got, want))
+
+
+def svm_library(img, features, vid, lv, torch):
+    """The SVM sums as one ``embedding_bag(mode="sum")`` call: the LUT as
+    a ``[V * F * levels, H]`` table, one bag of F cells per packet,
+    out-of-range features weighted 0.  Returns the call; prints whether
+    the card's ``embedding_bag`` takes the int32 table itself."""
+    import torch.nn.functional as Fn
+
+    V, H, F, _ = img.lut.shape
+    x = features.long()
+    inr = (x >= 0) & (x < lv)
+    f = torch.arange(F, device=x.device)
+    idx = (vid.long()[:, None] * F + f) * lv + x.clamp(0, lv - 1)
+    table = img.lut.permute(0, 2, 3, 1).reshape(V * F * lv, H).contiguous()
+    try:
+        Fn.embedding_bag(idx, table, mode="sum")
+        print("library: embedding_bag takes the int32 table")
+    except RuntimeError as e:
+        print(f"library: embedding_bag refuses the int32 table ({e}); timed "
+              "on a float64 copy, exact for these sums")
+        table = table.double()
+    w = inr.to(table.dtype)
+    return lambda: Fn.embedding_bag(idx, table, mode="sum",
+                                    per_sample_weights=w)
+
+
+def timing_phase(zoos, runtimes, pb, prof, torch, n_iter=50):
+    from repro_torch.kernels.classify_fused import (
+        classify_fused,
+        classify_fused_plain,
+    )
+    from repro_torch.kernels.forest_vote import forest_vote, forest_vote_plain
+    from repro_torch.kernels.svm_lookup import svm_lookup, svm_lookup_plain
+    from repro_torch.kernels.tcam_match import tcam_match, tcam_match_plain
+    from repro_torch.kernels.tree_walk import tree_walk, tree_walk_plain
+
+    zoo = zoos[None]
     packed, dev = zoo.packed, zoo.engine.device
     pbd = pb.to(dev)
-    V = packed.n_versions
+    V, L = packed.n_versions, prof.max_layers
     vid = torch.where((pbd.vid >= 0) & (pbd.vid < V), pbd.vid, 0)
     C = prof.max_classes
-    zero_bias = torch.zeros_like(packed.svm_bias)
+    img = packed.image.fused
+    codes, feats, shift = pbd.codes, pbd.features, packed.layer_shift
+    walked = tree_walk(codes, feats, vid, shift, img.walk)
 
-    def kernel():
-        return classify_fused(pbd.codes, pbd.features, vid,
-                              packed.layer_shift, packed.image.fused, C)
+    def layers(step):
+        def run():
+            c = codes
+            for l in range(L):
+                c = step(c, feats, vid, shift, img.walk, l)
+            return c
+        return run
 
-    def twin():
-        return ref.classify_fused_v(
-            pbd.codes, pbd.features, vid, packed.dt_cv, packed.dt_cm,
-            packed.dt_fid, packed.dt_flo, packed.dt_fhi, packed.dt_bit,
-            packed.dt_valid, packed.layer_shift, packed.pred_codes,
-            packed.pred_labels, packed.pred_valid, packed.vote_weights,
-            packed.svm_lut, zero_bias, C)
-
-    def ms(fn, n):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / n
-
-    got, want = kernel(), twin()
-    err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
-    k_ms = ms(kernel, n_iter)
-    t_ms = ms(twin, max(n_iter // 10, 3))
-    k_ms2 = ms(kernel, n_iter)
+    calls = {
+        "classify_fused": (
+            lambda: classify_fused(codes, feats, vid, shift, img, C),
+            lambda: classify_fused_plain(codes, feats, vid, shift, img, C),
+            1),
+        "tree_walk": (lambda: tree_walk(codes, feats, vid, shift, img.walk),
+                      lambda: tree_walk_plain(codes, feats, vid, shift,
+                                              img.walk), 1),
+        "tcam_match": (layers(tcam_match), layers(tcam_match_plain), L),
+        "forest_vote": (lambda: forest_vote(walked, vid, img.leaves, C),
+                        lambda: forest_vote_plain(walked, vid, img.leaves, C),
+                        1),
+        "svm_lookup": (lambda: svm_lookup(feats, vid, img.svm),
+                       lambda: svm_lookup_plain(feats, vid, img.svm), 1),
+    }
+    library = {"svm_lookup": svm_library(img, feats, vid, prof.levels, torch)}
+    lib_sums = library["svm_lookup"]().long() & 0xFFFFFFFF
+    if not torch.equal(lib_sums, svm_lookup(feats, vid, img.svm).long()
+                       & 0xFFFFFFFF):
+        raise AssertionError("the embedding_bag yardstick computes other sums")
     nbytes = bytes_touched(zoo, pb, prof, torch)
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    cyc = sleep_cycles_per_ms(torch)
+    out = {}
+    for name, (kernel, plain, per) in calls.items():
+        err = max_abs_err(kernel(), plain())
+        # at most ~n_iter launches a timed run: the device's launch queue
+        # must hold them all while it sleeps
+        n = max(3, n_iter // per)
+        k_ms = ms(kernel, n, torch, cyc) / per
+        p_ms = ms(plain, max(n_iter // 10, 3), torch, cyc) / per
+        k_ms2 = ms(kernel, n, torch, cyc) / per
+        lib_ms = (ms(library[name], n_iter, torch, cyc) if name in library
+                  else None)
+        bound = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        print(f"{name}: kernel {k_ms:.5f} ms and {k_ms2:.5f} ms (device time "
+              f"per launch, two runs of {n} calls"
+              f"{f' of {per} launches' if per > 1 else ''}), plain "
+              f"{p_ms:.5f} ms, library "
+              f"{'null' if lib_ms is None else f'{lib_ms:.5f} ms'}, bound "
+              f"{bound:.6f} ms ({nbytes[name]:.0f} bytes at 3.35 TB/s), max "
+              f"abs err {err}")
+        if lib_ms is None:
+            print(f"  library_ms null: {LIBRARY_NONE[name]}")
+        out[name] = dict(ms=min(k_ms, k_ms2), plain_ms=p_ms, bound_ms=bound,
+                         max_abs_err=err, library_ms=lib_ms,
+                         bytes=nbytes[name])
+
     B = pb.batch
     X = pb.features.numpy()
     mid, vids = pb.mid.numpy(), pb.vid.numpy()
-    zoo.classify(X, mid=mid, vid=vids)
-    n_req = 20
-    t0 = time.perf_counter()
-    for _ in range(n_req):
-        zoo.classify(X, mid=mid, vid=vids)
-    dt = time.perf_counter() - t0
-    rps = n_req * B / dt
-    print(f"B={B}: kernel {k_ms:.4f} ms and {k_ms2:.4f} ms (two runs of "
-          f"{n_iter}), twin {t_ms:.4f} ms, bound {bound_ms:.6f} ms "
-          f"({nbytes} bytes at 3.35 TB/s), max abs err {err}")
-    print(f"ZooServer.classify end to end: {rps:.0f} requests/s "
-          f"({dt / n_req * 1e3:.3f} ms per {B}-request batch)")
-    where_the_time_goes(lambda: zoo.classify(X, mid=mid, vid=vids), torch)
-    print("library_ms: null (no single PyTorch call computes this function)")
-    return dict(ms=min(k_ms, k_ms2), plain_ms=t_ms, bound_ms=bound_ms,
-                max_abs_err=err, bytes=nbytes, requests_per_s=rps)
+    steps = {f"zoo_{m or 'fused'}": (lambda z=z: z.classify(X, mid=mid,
+                                                            vid=vids))
+             for m, z in zoos.items()}
+    steps.update({f"multi_switch_{m or 'fused'}":
+                  (lambda rt=rt: rt.run(pb).rslt.cpu())
+                  for m, rt in runtimes.items()})
+    rps = {}
+    for name, step in steps.items():
+        step()
+        n_req = 20
+        t0 = time.perf_counter()
+        for _ in range(n_req):
+            step()
+        dt = time.perf_counter() - t0
+        rps[name] = n_req * B / dt
+        print(f"{name} end to end: {rps[name]:.0f} requests/s "
+              f"({dt / n_req * 1e3:.3f} ms per {B}-request batch)")
+    for name in ("zoo_fused", "zoo_layerwise"):
+        print(f"-- where the time goes, {name}")
+        where_the_time_goes(steps[name], torch)
+    return out, rps
 
 
 def main(argv=None) -> int:
@@ -439,7 +750,6 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch.core.plane import PlaneProfile
-    from repro_torch.kernels.classify_fused import classify_fused
 
     t_start = time.perf_counter()
     device = torch.device("cuda")
@@ -451,32 +761,52 @@ def main(argv=None) -> int:
     build_phase()
     phase("2 kernel vs twin, random full-width tables, V=4 with an empty slot")
     kernel_phase(prof, args.seed, device)
-    phase("3 main path: the zoo through ZooServer on the card")
+    phase("3 staged kernels vs their plain versions, the same tables")
+    stage_phase(prof, args.seed, device)
     models, programs, test_sets = make_zoo(args.seed)
-    classify_fused.launches = 0
-    zoo, pb = main_path_phase(prof, args.seed, device, models, programs,
-                              test_sets)
-    launches = classify_fused.launches
-    print(f"main path: classify_fused launched {launches} times")
-    if launches < 1:
-        raise AssertionError("the main path never launched classify_fused")
-    phase("4 timing at B = 4096")
-    t = timing_phase(zoo, pb, prof, torch)
+    path_launches = {}
+
+    def main_path(name, run, modes):
+        zero_launches()
+        result = run()
+        path_launches[name] = got = launches()
+        print(f"main path {name}: launches {got}")
+        for k in {k for m in modes for k in per_classify(m, prof)}:
+            if got[k] < 1:
+                raise AssertionError(f"the {name} path never launched {k}")
+        return result
+
+    zoos = {}
+    for n, mode in (("4", None), ("5", "unfused"), ("5", "layerwise")):
+        phase(f"{n} main path: the zoo through ZooServer(mode={mode!r})")
+        zoos[mode], pb = main_path(
+            f"zoo_{mode or 'fused'}",
+            lambda mode=mode: main_path_phase(prof, args.seed, device, models,
+                                              programs, test_sets, mode),
+            [mode])
+    phase("6 main path: the zoo planned over fat_tree(4), hop by hop")
+    runtimes = main_path("multi_switch", lambda: multi_switch_phase(
+        prof, device, programs, zoos[None], pb), [None, "layerwise"])
+    phase(f"7 timing at B = {BATCH}")
+    t, rps = timing_phase(zoos, runtimes, pb, prof, torch)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"paths": {"launches": path_launches,
+                                "requests_per_s": rps}}))
     print(json.dumps({"kernels": [{
-        "name": "classify_fused", "route": "cuda",
-        "source": "src/repro_torch/csrc/classify_fused.cu",
-        "replaces": "src/repro/kernels/classify_fused.py:166",
-        "launches": launches, "max_abs_err": t["max_abs_err"],
-        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": "bytes", "library_ms": None,
-        "matched_twin": t["max_abs_err"] == 0,
-        "requests_per_s": t["requests_per_s"]}]}))
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/csrc/{name}.cu",
+        "replaces": REPLACES[name],
+        "launches": sum(p[name] for p in path_launches.values()),
+        "max_abs_err": t[name]["max_abs_err"], "ms": t[name]["ms"],
+        "plain_ms": t[name]["plain_ms"], "bound_ms": t[name]["bound_ms"],
+        "bound_by": "bytes", "library_ms": t[name]["library_ms"],
+        "matched_twin": t[name]["max_abs_err"] == 0}
+        for name in kernels()]}))
     print(smi[0] if smi else "nvidia-smi: no answer")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

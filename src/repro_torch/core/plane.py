@@ -4,7 +4,8 @@ Port of ``src/repro/core/plane.py`` (paper §6).  A physical switch compiles
 its template P4 program once; every model (re)deployment afterwards only
 rewrites match-action entries.  Here table entries are tensors of a
 ``PackedProgram``, and installing or swapping a model is a tensor update;
-classify is one CUDA kernel launch plus plain torch glue.
+classify is one CUDA kernel launch plus plain torch glue (or, in the staged
+modes, three launches or L + 2).
 
 One engine hosts both pipelines (paper Fig. 5) — the tree pipeline (walk ->
 dt_predict -> multitree_voting) and the SVM pipeline (svm_mul partials ->
@@ -93,7 +94,9 @@ class ExecImage:
 
     A pure function of the ``PackedProgram`` source tables
     (``build_exec_image``), kept in sync per slot by install and evict.
-    ``fused`` is the classify kernel's operand group; its bias block is
+    ``fused`` is the operand group of every classify mode: the fused kernel
+    reads all of it, the staged kernels its ``walk``, ``leaves`` and
+    ``svm`` parts.  Its bias block is
     **zeros**: ``_classify_impl`` adds ``svm_bias`` outside the kernel so
     partial sums compose across devices (bias once, on the owning device).
     """
@@ -411,8 +414,9 @@ def _classify_impl(packed: PackedProgram, pb: PacketBatch, *, n_classes: int,
     vid = torch.where(vid_ok, pb.vid, 0)
     img = packed.image if packed.image is not None else \
         build_exec_image(packed)
-    # Both pipelines in ONE kernel launch; zero bias into the kernel —
-    # svm_bias is added below, outside, so partial sums compose.
+    # Both pipelines in ONE kernel launch (three or L + 2 in the staged
+    # modes, every stage bound to the same image); zero bias into the
+    # kernels — svm_bias is added below, outside, so partial sums compose.
     codes, tree_label, partial = ops.classify_fused_v(
         pb.codes, pb.features, vid, packed.dt_cv, packed.dt_cm,
         packed.dt_fid, packed.dt_flo, packed.dt_fhi, packed.dt_bit,
@@ -454,9 +458,13 @@ class SwitchEngine:
     def __init__(self, profile: PlaneProfile, *, mode: str | None = None,
                  device=None) -> None:
         """``device`` defaults to ``cuda``; ``mode`` picks the kernel path
-        (``kernels/ops.py``): ``None`` runs the CUDA kernel on a CUDA device
-        and the twin on the CPU, ``"ref"`` forces the twin, ``"cuda"`` the
-        kernel wrapper."""
+        (``kernels/ops.py``): ``None`` runs the fused CUDA kernel on a CUDA
+        device and the twin on the CPU, ``"ref"`` forces the twin, ``"cuda"``
+        the kernel wrapper.  ``"unfused[-cuda|-ref]"`` runs the classify as
+        three stages (walk, vote, SVM sums: three launches) and
+        ``"layerwise[-cuda|-ref]"`` walks layer by layer (L + 2 launches);
+        without a suffix their stages follow the device as ``None`` does.
+        ``self.mode`` holds the resolved mode."""
         self.profile = profile
         self.device = torch.device(DEFAULT_DEVICE if device is None else device)
         self.mode = ops.resolve_mode(mode, self.device)

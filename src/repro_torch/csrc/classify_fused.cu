@@ -35,10 +35,13 @@
 //     masked merge;
 //   * a thread per (packet, hyperplane) accumulates the SVM sum in int32
 //     with a direct gather, with no f32 one-hot contraction and no rounding.
+//
+// The per-row, per-leaf, vote and per-hyperplane steps live in
+// acorn_device.cuh, shared with the staged kernels.
 
 #include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+
+#include "acorn_device.cuh"
 
 namespace {
 
@@ -80,27 +83,13 @@ __global__ void __launch_bounds__(256) classify_fused_kernel(
       const int* f = s_feat + p * F;
       for (int l = 0; l < L; ++l) {
         const size_t row = ((size_t)v * L + l) * T + t;
-        const int n = __ldg(n_entries + row);
-        const int4* rec = entries + row * E;
-        for (int e = 0; e < n; ++e) {
-          const int4 r = __ldg(rec + e);
-          if ((code & (unsigned)r.y) != (unsigned)r.x) continue;
-          const int x = f[(short)(r.z & 0xFFFF)];
-          if (x < (r.z >> 16) || x > (int)(short)(r.w & 0xFFFF)) continue;
-          const int s = __ldg(layer_shift + l);
-          if (((r.w >> 16) & 1) && s >= 0 && s < 32) code |= 1u << s;
-          break;
-        }
+        code = acorn::walk_row(code, f, entries + row * E,
+                               __ldg(n_entries + row),
+                               __ldg(layer_shift + l));
       }
       const size_t leaf = ((size_t)v * T + t) * P;
-      const unsigned* pc = pred_codes + leaf;
-      int lo = 0, hi = P;
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (__ldg(pc + mid) < code) lo = mid + 1; else hi = mid;
-      }
-      const int pos = min(lo, P - 1);
-      if (__ldg(pc + pos) == code) label = __ldg(pred_labels + leaf + pos);
+      label = acorn::leaf_label(pred_codes + leaf, pred_labels + leaf, P,
+                                code);
     }
     out_codes[(size_t)b * T + t] = (int)code;
     s_label[p * T + t] = label;
@@ -111,19 +100,10 @@ __global__ void __launch_bounds__(256) classify_fused_kernel(
   if (threadIdx.x < n_here) {
     const int b = b0 + threadIdx.x;
     const int v = vid[b];
-    int best_c = 0;
-    if (v >= 0 && v < V) {
-      const int* lab = s_label + threadIdx.x * T;
-      const float* w = weights + (size_t)v * T;
-      float best = -INFINITY;
-      for (int c = 0; c < n_classes; ++c) {
-        float score = 0.f;
-        for (int t = 0; t < T; ++t)
-          if (lab[t] == c) score += __ldg(w + t);
-        if (score > best) { best = score; best_c = c; }
-      }
-    }
-    out_label[b] = best_c;
+    out_label[b] = (v >= 0 && v < V)
+        ? acorn::vote(s_label + threadIdx.x * T, weights + (size_t)v * T, T,
+                      n_classes)
+        : 0;
   }
 
   // ---- svm sums: one thread per (packet, hyperplane) ----
@@ -131,18 +111,10 @@ __global__ void __launch_bounds__(256) classify_fused_kernel(
     const int p = i / H, h = i % H;
     const int b = b0 + p;
     const int v = vid[b];
-    unsigned acc = 0;
-    if (v >= 0 && v < V) {
-      acc = (unsigned)__ldg(bias + (size_t)v * H + h);
-      const int* lut_h = lut + ((size_t)v * H + h) * F * levels;
-      const int* f = s_feat + p * F;
-      for (int j = 0; j < F; ++j) {
-        const int x = f[j];
-        if (x >= 0 && x < levels)
-          acc += (unsigned)__ldg(lut_h + (size_t)j * levels + x);
-      }
-    }
-    out_sums[(size_t)b * H + h] = (int)acc;
+    out_sums[(size_t)b * H + h] = (v >= 0 && v < V)
+        ? acorn::svm_sum(s_feat + p * F, lut + ((size_t)v * H + h) * F * levels,
+                         F, levels, __ldg(bias + (size_t)v * H + h))
+        : 0;
   }
 }
 

@@ -1,0 +1,75 @@
+"""dt_predict + multitree_voting in one launch (stage 2 of the staged
+classify modes).
+
+Replaces the Pallas TPU kernel ``forest_predict_vote_pallas_v``
+(``src/repro/kernels/forest_vote.py:69``).  The kernel is CUDA C++ in
+``csrc/forest_vote.cu``; the note at its top says what bounds it on an H100
+and what its design does about that.  This module holds:
+
+* ``forest_vote`` — the wrapper.  On CUDA tensors it launches the kernel or
+  raises; on CPU tensors it runs ``forest_vote_plain``.
+  ``forest_vote.launches`` counts launches.
+* ``forest_vote_plain`` — the kernel's plain torch version on the same
+  operands, through the twin ``ref.forest_predict_vote_v`` (leaf validity
+  is folded into the labels, so every leaf counts as valid there).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.launch import (
+    check,
+    launch,
+    on_card,
+    packets_per_block,
+)
+from repro_torch.kernels.tiling import LeafOperands
+
+__all__ = ["forest_vote", "forest_vote_plain", "SOURCE"]
+
+SOURCE = "forest_vote"           # csrc/forest_vote.cu
+
+
+def forest_vote_plain(codes, vid, ops: LeafOperands, n_classes: int):
+    """The kernel's function in plain torch, on the kernel's operands."""
+    pred_valid = torch.ones_like(ops.pred_labels, dtype=torch.bool)
+    return ref.forest_predict_vote_v(codes, vid, ops.pred_codes,
+                                     ops.pred_labels, pred_valid, ops.weights,
+                                     n_classes)
+
+
+def forest_vote(codes: torch.Tensor, vid: torch.Tensor, ops: LeafOperands,
+                n_classes: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Leaf lookup of every tree and the weighted vote, in one launch.
+
+    codes int32 [B, T] (uint32 bits), vid int32 [B], ``ops`` from
+    ``tiling.prep_leaves`` (or ``ExecImage.fused.leaves``).  Returns (label
+    int32 [B], per-tree labels int32 [B, T]).
+    """
+    if not on_card("forest_vote", codes=codes, vid=vid, **ops._asdict()):
+        return forest_vote_plain(codes, vid, ops, n_classes)
+    B, T = codes.shape
+    V, _, P = ops.pred_codes.shape
+    i32 = torch.int32
+    for name, x, dtype, shape in (
+            ("codes", codes, i32, (B, T)),
+            ("vid", vid, i32, (B,)),
+            ("pred_codes", ops.pred_codes, i32, (V, T, P)),
+            ("pred_labels", ops.pred_labels, i32, (V, T, P)),
+            ("weights", ops.weights, torch.float32, (V, T))):
+        check(name, x, dtype, shape)
+    if P < 1:
+        raise ValueError("need at least one leaf slot per tree")
+    label = torch.empty((B,), dtype=i32, device=codes.device)
+    per_tree = torch.empty((B, T), dtype=i32, device=codes.device)
+    if B == 0:
+        return label, per_tree
+    launch(SOURCE, "acorn_forest_vote", codes.device, codes, vid,
+           ops.pred_codes, ops.pred_labels, ops.weights, label, per_tree, B,
+           V, T, P, n_classes, packets_per_block(T, T))
+    forest_vote.launches += 1
+    return label, per_tree
+
+
+forest_vote.launches = 0

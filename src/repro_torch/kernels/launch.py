@@ -1,0 +1,77 @@
+"""What every kernel wrapper shares: where a call runs, operand checks, and
+the launch of a ``csrc/`` function on PyTorch's current stream.
+
+A wrapper runs its kernel on CUDA tensors and its plain torch version on CPU
+tensors (``on_card``), and raises for any other device or a mix of devices.
+It never falls back: a kernel that does not build or whose launch is
+refused raises (``launch``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.build import build
+
+__all__ = ["on_card", "check", "launch", "packets_per_block"]
+
+THREADS = 256                    # every kernel's block size
+SMEM_BYTES = 48 * 1024           # static limit, no opt-in attribute needed
+
+
+def on_card(kernel: str, **tensors: torch.Tensor) -> bool:
+    """True when the (first-named) tensors lie on a CUDA device, so the
+    kernel launches; False on the CPU, where the plain version runs."""
+    (name0, x0), *rest = tensors.items()
+    dev = x0.device
+    for name, x in rest:
+        if x.device != dev:
+            raise ValueError(f"{name} on {x.device}, {name0} on {dev}")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"no {kernel} kernel for {dev}")
+    return True
+
+
+def check(name: str, x: torch.Tensor, dtype: torch.dtype, shape) -> None:
+    """Raise unless ``x`` has the dtype, shape and contiguity the kernel
+    reads."""
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: dtype {x.dtype}, kernel takes {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def launch(source: str, symbol: str, device: torch.device, *args) -> None:
+    """Build ``csrc/<source>.cu`` (once) and launch its C function
+    ``symbol`` on the current stream of ``device``.  ``args`` are tensors,
+    passed as device pointers, and ints; the stream goes last.  Raises if
+    the launch is refused (too many threads, too much shared memory)."""
+    fn = getattr(build(source)[source].lib, symbol)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p if isinstance(a, torch.Tensor)
+                       else ctypes.c_int for a in args] + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                   for a in args), stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
+
+
+def packets_per_block(threads: int, smem_ints: int) -> int:
+    """Packets per block when each packet takes ``threads`` threads and
+    ``smem_ints`` ints of shared memory: within 256 threads and 48 KB."""
+    if threads > THREADS:
+        raise ValueError(f"{threads} threads per packet > {THREADS} of one "
+                         "block")
+    pb = min(THREADS // max(threads, 1), SMEM_BYTES // (4 * max(smem_ints, 1)))
+    if pb < 1:
+        raise ValueError(f"{smem_ints} ints per packet do not fit one "
+                         "block's shared memory")
+    return pb

@@ -1,7 +1,13 @@
-"""Install-time operand prep for the Hopper classify kernel.
+"""Install-time operand prep for the Hopper classify kernels.
 
 Port of ``prep_classify_fused`` (``src/repro/kernels/tiling.py:233``) for the
-layout the CUDA kernel reads.  What carries over is semantics:
+layout the CUDA kernels read.  One operand image serves every classify mode:
+the fused kernel reads all of it, and the staged kernels each read their
+part — ``tree_walk`` and ``tcam_match`` the walk records, ``forest_vote``
+the leaves, ``svm_lookup`` the LUT — so install and evict prep one layout
+whatever the mode.  The JAX package's per-stage TPU layouts (a one-hot
+``fsel`` stream, a chunked f32 LUT, int32 validity planes) have no
+counterpart here.  What carries over is semantics:
 
 * the **no-match padding convention** (``tiling.py:73-84``): an entry that
   must never match masks all code bits against value 0 and carries the empty
@@ -32,16 +38,42 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["ClassifyFusedOperands", "prep_classify_fused",
-           "unpack_classify_fused", "NO_MATCH"]
+__all__ = ["WalkOperands", "LeafOperands", "LutOperands",
+           "ClassifyFusedOperands", "prep_walk", "prep_leaves", "prep_lut",
+           "prep_classify_fused", "unpack_walk", "unpack_classify_fused",
+           "NO_MATCH"]
 
 # (code value, code mask, f_lo, f_hi) of an entry that matches no packet.
 NO_MATCH = (0, -1, 1, 0)          # mask 0xFFFFFFFF as int32 bits
 _I16 = (-(2**15), 2**15 - 1)
 
 
+class WalkOperands(NamedTuple):
+    """The walk's records: what ``tree_walk`` and ``tcam_match`` read."""
+
+    entries: torch.Tensor      # int32 [V, L, T, E, 4] walk entry records
+    n_entries: torch.Tensor    # int32 [V, L, T] loop bound per (layer, tree)
+
+
+class LeafOperands(NamedTuple):
+    """The leaves and vote weights: what ``forest_vote`` reads."""
+
+    pred_codes: torch.Tensor   # int32 [V, T, P] sorted leaf codes (uint32 bits)
+    pred_labels: torch.Tensor  # int32 [V, T, P] leaf labels, 0 where invalid
+    weights: torch.Tensor      # f32   [V, T] vote weights
+
+
+class LutOperands(NamedTuple):
+    """The SVM products: what ``svm_lookup`` reads."""
+
+    lut: torch.Tensor          # int32 [V, H, F, levels] svm products
+    bias: torch.Tensor         # int32 [V, H]
+
+
 class ClassifyFusedOperands(NamedTuple):
-    """Kernel-ready operands of the fused classify (one exec-image group)."""
+    """Kernel-ready operands of every classify mode (one exec-image group):
+    the fused kernel reads all of them, each staged kernel its part
+    (``walk``, ``leaves``, ``svm``)."""
 
     entries: torch.Tensor      # int32 [V, L, T, E, 4] walk entry records
     n_entries: torch.Tensor    # int32 [V, L, T] loop bound per (layer, tree)
@@ -51,6 +83,18 @@ class ClassifyFusedOperands(NamedTuple):
     lut: torch.Tensor          # int32 [V, H, F, levels] svm products
     bias: torch.Tensor         # int32 [V, H]
 
+    @property
+    def walk(self) -> WalkOperands:
+        return WalkOperands(self.entries, self.n_entries)
+
+    @property
+    def leaves(self) -> LeafOperands:
+        return LeafOperands(self.pred_codes, self.pred_labels, self.weights)
+
+    @property
+    def svm(self) -> LutOperands:
+        return LutOperands(self.lut, self.bias)
+
 
 def _check_i16(name: str, x: torch.Tensor) -> None:
     if x.numel() and (int(x.min()) < _I16[0] or int(x.max()) > _I16[1]):
@@ -59,20 +103,17 @@ def _check_i16(name: str, x: torch.Tensor) -> None:
             "layout needs feature_width <= 15")
 
 
-def prep_classify_fused(code_value, code_mask, fid, f_lo, f_hi, set_bit,
-                        valid, pred_codes, pred_labels, pred_valid, weights,
-                        lut, bias) -> ClassifyFusedOperands:
-    """Source tables -> the kernel's operands, on the tables' device.
-
-    Walk tables are ``[V, L, T, E]`` dt_layer state (uint32 fields as int32
-    bits), predict tables ``[V, T, P]`` + ``[V, T]`` weights, svm
-    ``[V, H, F, levels]`` + ``[V, H]`` bias.
-    """
+def prep_walk(code_value, code_mask, fid, f_lo, f_hi, set_bit, valid,
+              n_features: int) -> WalkOperands:
+    """``[V, L, T, E]`` dt_layer tables (uint32 fields as int32 bits) -> the
+    walk records, on the tables' device.  ``n_features`` is the width of the
+    feature rows the records index."""
     valid = valid.to(torch.bool)
-    F = lut.shape[2]
     fid_v, lo_v, hi_v = fid[valid], f_lo[valid], f_hi[valid]
-    if fid_v.numel() and (int(fid_v.min()) < 0 or int(fid_v.max()) >= F):
-        raise ValueError(f"feature id outside [0, {F}) on a valid entry")
+    if fid_v.numel() and (int(fid_v.min()) < 0
+                          or int(fid_v.max()) >= n_features):
+        raise ValueError(
+            f"feature id outside [0, {n_features}) on a valid entry")
     _check_i16("f_lo", lo_v)
     _check_i16("f_hi", hi_v)
     cv_f, cm_f, lo_f, hi_f = NO_MATCH
@@ -89,20 +130,42 @@ def prep_classify_fused(code_value, code_mask, fid, f_lo, f_hi, set_bit,
     E = valid.shape[-1]
     pos = torch.arange(1, E + 1, dtype=i32, device=valid.device)
     n_entries = torch.where(valid, pos, 0).amax(dim=-1).to(i32).contiguous()
+    return WalkOperands(entries, n_entries)
+
+
+def prep_leaves(pred_codes, pred_labels, pred_valid,
+                weights) -> LeafOperands:
+    """``[V, T, P]`` leaf tables + ``[V, T]`` weights -> the vote's
+    operands; validity folds into the labels."""
+    i32 = torch.int32
     labels = torch.where(pred_valid.to(torch.bool), pred_labels.to(i32), 0)
+    return LeafOperands(pred_codes.to(i32).contiguous(), labels.contiguous(),
+                        weights.to(torch.float32).contiguous())
+
+
+def prep_lut(lut, bias) -> LutOperands:
+    """``[V, H, F, levels]`` products + ``[V, H]`` bias, as int32."""
+    return LutOperands(lut.to(torch.int32).contiguous(),
+                       bias.to(torch.int32).contiguous())
+
+
+def prep_classify_fused(code_value, code_mask, fid, f_lo, f_hi, set_bit,
+                        valid, pred_codes, pred_labels, pred_valid, weights,
+                        lut, bias) -> ClassifyFusedOperands:
+    """Source tables -> the kernels' operands, on the tables' device: the
+    walk records, the leaves and the LUT (``prep_walk``, ``prep_leaves``,
+    ``prep_lut``), with the walk indexing the LUT's ``F`` features."""
     return ClassifyFusedOperands(
-        entries=entries, n_entries=n_entries,
-        pred_codes=pred_codes.to(i32).contiguous(),
-        pred_labels=labels.contiguous(),
-        weights=weights.to(torch.float32).contiguous(),
-        lut=lut.to(i32).contiguous(), bias=bias.to(i32).contiguous())
+        *prep_walk(code_value, code_mask, fid, f_lo, f_hi, set_bit, valid,
+                   lut.shape[2]),
+        *prep_leaves(pred_codes, pred_labels, pred_valid, weights),
+        *prep_lut(lut, bias))
 
 
-def unpack_classify_fused(ops: ClassifyFusedOperands) -> tuple:
-    """Operands -> source-shaped tables (code_value, code_mask, fid, f_lo,
-    f_hi, set_bit, valid, pred_codes, pred_labels, pred_valid, weights, lut,
-    bias) that classify exactly as the tables they were prepped from: what
-    the kernel's plain version runs on."""
+def unpack_walk(ops: WalkOperands) -> tuple:
+    """Walk records -> source-shaped tables (code_value, code_mask, fid,
+    f_lo, f_hi, set_bit, valid) that walk exactly as the tables they were
+    prepped from."""
     r = ops.entries
     cv, cm, w2, w3 = r[..., 0], r[..., 1], r[..., 2], r[..., 3]
     fid = (w2 << 16) >> 16                 # sign-extend the low int16
@@ -112,6 +175,14 @@ def unpack_classify_fused(ops: ClassifyFusedOperands) -> tuple:
     E = r.shape[3]
     valid = (torch.arange(E, device=r.device)
              < ops.n_entries[..., None].to(torch.int64))
+    return cv, cm, fid, f_lo, f_hi, set_bit, valid
+
+
+def unpack_classify_fused(ops: ClassifyFusedOperands) -> tuple:
+    """Operands -> source-shaped tables (code_value, code_mask, fid, f_lo,
+    f_hi, set_bit, valid, pred_codes, pred_labels, pred_valid, weights, lut,
+    bias) that classify exactly as the tables they were prepped from: what
+    the kernel's plain version runs on."""
     pred_valid = torch.ones_like(ops.pred_labels, dtype=torch.bool)
-    return (cv, cm, fid, f_lo, f_hi, set_bit, valid, ops.pred_codes,
-            ops.pred_labels, pred_valid, ops.weights, ops.lut, ops.bias)
+    return (*unpack_walk(ops.walk), ops.pred_codes, ops.pred_labels,
+            pred_valid, ops.weights, ops.lut, ops.bias)

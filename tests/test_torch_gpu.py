@@ -1,4 +1,4 @@
-"""The CUDA kernel on the card, held to the torch twin.
+"""The CUDA kernels on the card, held to their plain torch versions.
 
 Every test here needs a CUDA card and skips without one; they import only
 ``torch``, ``numpy`` and the port, so they run on a machine with no JAX:
@@ -13,12 +13,21 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import distributed_plane as tdp
 from repro_torch.core import mlmodels as tml
+from repro_torch.core import planner as tpl
 from repro_torch.core.packets import PacketBatch
 from repro_torch.core.plane import PlaneProfile, SwitchEngine
+from repro_torch.core.topology import fat_tree
+from repro_torch.core.translator import translate
 from repro_torch.data import load_dataset
 from repro_torch.kernels import ref, tiling
 from repro_torch.kernels.classify_fused import classify_fused
+from repro_torch.kernels.forest_vote import forest_vote, forest_vote_plain
+from repro_torch.kernels.svm_lookup import svm_lookup, svm_lookup_plain
+from repro_torch.kernels.tcam_match import tcam_match, tcam_match_plain
+from repro_torch.kernels.tree_walk import tree_walk, tree_walk_plain
+from repro_torch.runtime import DataplaneRuntime, SequentialPathExecutor
 from repro_torch.serving import ZooServer
 
 pytestmark = pytest.mark.gpu
@@ -137,3 +146,124 @@ def test_engine_and_server_on_the_card(cuda, satdap_zoo):
         want = twin.classify(gzoo.packed, pb)
         for f in ("rslt", "codes", "svm_acc"):
             assert torch.equal(getattr(out, f), getattr(want, f)), f
+
+
+def _launched(fn, call):
+    """Run ``call`` and return (its result, how many launches of ``fn``)."""
+    before = fn.launches
+    out = call()
+    torch.cuda.synchronize()
+    return out, fn.launches - before
+
+
+@pytest.mark.parametrize("B,T,E,F,V,L,P,C,H,levels,empty", SWEEP)
+def test_stage_kernels_match_plain(cuda, B, T, E, F, V, L, P, C, H, levels,
+                                   empty):
+    """Each staged kernel equals its plain version on the same operands,
+    one launch per call; tcam_match at the first, a middle and the last
+    layer; the vote on codes that hit leaves, with misses; the SVM with a
+    bias and out-of-range features."""
+    args = random_case(B * 31 + V, B, T, E, F, V, L, P, C, H, levels, empty,
+                       cuda)
+    codes, feats, vid, shift = args[0], args[1], args[2], args[10]
+    prep = tiling.prep_classify_fused(*args[3:10], *args[11:17])
+    got, n = _launched(tree_walk, lambda: tree_walk(codes, feats, vid, shift,
+                                                    prep.walk))
+    assert n == 1
+    assert torch.equal(got, tree_walk_plain(codes, feats, vid, shift,
+                                            prep.walk))
+    for layer in sorted({0, L // 2, L - 1}):
+        got, n = _launched(tcam_match, lambda: tcam_match(
+            codes, feats, vid, shift, prep.walk, layer))
+        assert n == 1
+        assert torch.equal(got, tcam_match_plain(codes, feats, vid, shift,
+                                                 prep.walk, layer))
+    rng = np.random.default_rng(B)
+    pick = torch.from_numpy(rng.integers(0, P, (B, T))).to(cuda)
+    v = vid.long().clamp(0, V - 1)
+    hits = prep.pred_codes[v[:, None], torch.arange(T, device=cuda)[None, :],
+                           pick]
+    leaf_codes = torch.where(torch.from_numpy(rng.random((B, T)) < 0.8)
+                             .to(cuda), hits, codes)
+    got, n = _launched(forest_vote, lambda: forest_vote(
+        leaf_codes, vid, prep.leaves, C))
+    assert n == 1
+    for g, w in zip(got, forest_vote_plain(leaf_codes, vid, prep.leaves, C)):
+        assert torch.equal(g, w)
+    bias = torch.from_numpy(rng.integers(-10_000, 10_000, (V, H))
+                            .astype(np.int32)).to(cuda)
+    lut = tiling.prep_lut(prep.lut, bias)
+    wide = torch.where(torch.from_numpy(rng.random((B, F)) < 0.1).to(cuda),
+                       torch.full_like(feats, levels), feats)
+    wide[::7, 0] = -1
+    got, n = _launched(svm_lookup, lambda: svm_lookup(wide, vid, lut))
+    assert n == 1
+    assert torch.equal(got, svm_lookup_plain(wide, vid, lut))
+
+
+@pytest.mark.parametrize("mode,per_classify", [
+    ("unfused", {"tree_walk": 1, "tcam_match": 0}),
+    ("layerwise", {"tree_walk": 0, "tcam_match": PROFILE.max_layers})])
+def test_staged_server_on_the_card(cuda, satdap_zoo, mode, per_classify):
+    """The zoo through ZooServer in a staged mode: 3 or L + 2 launches per
+    classify, equal to the twin engine on the card."""
+    models, X = satdap_zoo
+    gzoo = ZooServer(PROFILE, mode=mode)
+    for vid, m in models.items():
+        gzoo.install(m, vid=vid)
+    twin = SwitchEngine(PROFILE, mode="ref", device=cuda)
+    kernels = {"tree_walk": tree_walk, "tcam_match": tcam_match,
+               "forest_vote": forest_vote, "svm_lookup": svm_lookup,
+               "classify_fused": classify_fused}
+    want_n = {**per_classify, "forest_vote": 1, "svm_lookup": 1,
+              "classify_fused": 0}
+    rng = np.random.default_rng(4)
+    for B in (1, 7, 300, X.shape[0]):
+        Xb = X[rng.integers(0, X.shape[0], B)]
+        vid = rng.integers(0, 4, B).astype(np.int32)
+        mid = np.asarray([(0, 1, 2, 0)[v] for v in vid], np.int32)
+        pb = PacketBatch.make_request(
+            Xb, mid=mid, vid=vid, max_features=PROFILE.max_features,
+            n_trees=PROFILE.max_trees, n_hyperplanes=PROFILE.max_hyperplanes)
+        before = {k: f.launches for k, f in kernels.items()}
+        out = gzoo.runtime.run(pb)
+        torch.cuda.synchronize()
+        assert {k: f.launches - before[k] for k, f in kernels.items()} == \
+            want_n
+        want = twin.classify(gzoo.packed, pb)
+        for f in ("rslt", "codes", "svm_acc"):
+            assert torch.equal(getattr(out, f), getattr(want, f)), f
+
+
+def test_sequential_path_on_the_card(cuda, satdap_zoo):
+    """A plan_zoo deployment over fat_tree(4), hop programs on the card:
+    the sequential path in the fused and layerwise modes equals the single
+    switch in mode ref, with hops x 1 and hops x (L + 2) launches."""
+    models, X = satdap_zoo
+    progs = [translate(models[v], vid=v) for v in sorted(models)]
+    net = fat_tree(4)
+    h = net.hosts()
+    plans = tpl.plan_zoo(progs, net, h[0], h[-1],
+                         default_device=tpl.DeviceModel(n_stages=12))
+    devs, dps = tdp.build_zoo_device_programs(progs, plans, PROFILE)
+    assert len(devs) >= 3 and all(p.device.type == "cuda" for p in dps)
+    twin = SwitchEngine(PROFILE, mode="ref", device=cuda)
+    single = twin.empty()
+    for p in progs:
+        single = twin.install(single, p)
+    rng = np.random.default_rng(5)
+    B = X.shape[0]
+    vid = rng.integers(0, 4, B).astype(np.int32)
+    mid = np.asarray([(0, 1, 2, 0)[v] for v in vid], np.int32)
+    pb = PacketBatch.make_request(
+        X, mid=mid, vid=vid, max_features=PROFILE.max_features,
+        n_trees=PROFILE.max_trees, n_hyperplanes=PROFILE.max_hyperplanes)
+    want = twin.classify(single, pb).rslt
+    hops, L = len(dps), PROFILE.max_layers
+    for mode, fn, n in ((None, classify_fused, hops),
+                        ("layerwise", tcam_match, hops * L)):
+        rt = DataplaneRuntime(SequentialPathExecutor(
+            dps, n_classes=PROFILE.max_classes, mode=mode))
+        out, launched = _launched(fn, lambda: rt.run(pb))
+        assert launched == n
+        assert torch.equal(out.rslt, want)
