@@ -8,7 +8,7 @@ needs one CUDA card; without one, or without the port's sources beside it,
 it exits non-zero and prints no result.  It imports nothing of JAX or of the
 JAX package.  Phases, each fatal on failure:
 
-1. build   — ``nvcc`` compiles the five ``src/repro_torch/csrc/*.cu``
+1. build   — ``nvcc`` compiles the six ``src/repro_torch/csrc/*.cu``
              kernels for sm_90a, all at once; prints the seconds and the
              ``-Xptxas -v`` summary of each.
 2. kernel  — random full-width tables for four zoo slots (one empty) at
@@ -19,7 +19,13 @@ JAX package.  Phases, each fatal on failure:
              codes that hit leaves) and ``svm_lookup`` (with a bias and
              features outside [0, levels)) each equal their plain version
              bit for bit.
-4. path    — a zoo at the paper's profile (``PlaneProfile(max_versions=4)``)
+4. attn    — ``decode_attn`` against its plain version on the
+             ``tests/test_kernels.py`` sweep and at internlm2-1.8b's full
+             width (B 16, 16 query and 8 KV heads of 128, S 4096), each in
+             bf16 and f32, within the JAX package's tolerances on the sweep
+             and one bf16 ulp at full width, a bound that two wrong
+             attentions must fail; rows with ``kv_len = 0`` give zeros.
+5. path    — a zoo at the paper's profile (``PlaneProfile(max_versions=4)``)
              built with the port's own models and translator: an 8-tree
              random forest and a deeper decision tree on the cicids-17
              stand-in, a one-vs-rest linear SVM on the digits stand-in, and
@@ -29,24 +35,38 @@ JAX package.  Phases, each fatal on failure:
              bit-identical to ``SwitchEngine(mode="ref")``, DT/RF equal to
              ``predict``, SVM within the fixed-point slack, the empty slot
              answers -1, passthrough untouched, one launch per classify.
-5. staged  — the same zoo and traffic through ``ZooServer(mode="unfused")``
+6. staged  — the same zoo and traffic through ``ZooServer(mode="unfused")``
              (3 launches per classify: walk, vote, SVM sums) and
              ``ZooServer(mode="layerwise")`` (L + 2: one ``tcam_match`` per
              layer), held to ``mode="ref"`` the same way.
-6. multi   — ``plan_zoo`` places the three versions over ``fat_tree(4)``,
+7. multi   — ``plan_zoo`` places the three versions over ``fat_tree(4)``,
              host to host, on switches of 40 stage slots; the hop programs
              (``build_zoo_device_programs``) run in path order through
              ``DataplaneRuntime(SequentialPathExecutor(...))`` in the fused
              and the layerwise mode: rslt, codes and svm_acc equal the
              single switch in ``mode="ref"``, with hops x 1 and
              hops x (L + 2) launches.
-7. timing  — CUDA events over many launches at B = 4096: each kernel, its
-             plain version, one PyTorch library call where one computes the
-             same function, and the bound from the bytes this run's data
-             touches; requests/s end to end through ``ZooServer`` in the
-             three modes and through the multi-switch runtime.
+8. lm      — LM decode serving through ``repro_torch.launch.serve.serve``
+             at internlm2-1.8b's full width (seeded random weights): B 16,
+             a 64-token prompt fed through decode steps, 32 greedy tokens,
+             2 tenant swaps written in place; 24 ``decode_attn`` launches
+             per step.  Then, per tenant and teacher-forced over the same
+             tokens, every step's logits against the same steps with the
+             twin attention (``mode="ref"``) and against the port's
+             ``forward`` in bf16, and (last tenant) the f32 model's decode
+             against its f32 ``forward`` and the bf16 decode against it;
+             wrong attentions held to the same bounds must fail them.
+9. timing  — CUDA events over many launches at B = 4096: each classify
+             kernel, its plain version, one PyTorch library call where one
+             computes the same function, and the bound from the bytes this
+             run's data touches; requests/s end to end through
+             ``ZooServer`` in the three modes and through the multi-switch
+             runtime.  The full-width decode step with the cache filled to
+             ``kv_len`` 4096 at B 16: ms per step, tokens/s, ``decode_attn``
+             per launch against its bound, plain version and
+             ``scaled_dot_product_attention``, and a profiler table.
 
-Each main path (4, 5, 6) runs with every kernel's launch count set to 0
+Each main path (5, 6, 7, 8) runs with every kernel's launch count set to 0
 just before it and read just after; a kernel of the path that never
 launched fails the run.  Output: a ``paths`` JSON line, a ``kernels`` JSON
 line, the card's name and power limit, and last
@@ -55,6 +75,7 @@ line, the card's name and power limit, and last
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -75,7 +96,31 @@ REPLACES = {                     # the TPU kernel each CUDA kernel replaces
     "tcam_match": "src/repro/kernels/tcam_match.py:81",
     "forest_vote": "src/repro/kernels/forest_vote.py:69",
     "svm_lookup": "src/repro/kernels/svm_lookup.py:71",
+    "decode_attn": "src/repro/kernels/decode_attn.py:82",
 }
+BF16_FLOPS_PER_S = 989e12        # H100 SXM data sheet, dense tensor cores
+LM_ARCH = "internlm2-1.8b"
+LM_SERVE = dict(batch=16, prompt_len=64, gen=32, swaps=2)
+LM_CACHE = 4096                  # kv_len of the timed decode step
+# (atol, rtol): decode_attn vs its plain version.  On the sweep, the JAX
+# package's own (tests/test_kernels.py:178); the integer kernels are exact.
+ATTN_TOL = {"bfloat16": (2e-2, 1e-2), "float32": (2e-5, 1e-2)}
+# At full width a row of long kv_len gives outputs of ~0.03 (a softmax over
+# up to 4096 rows), where atol 2e-2 would pass almost any answer.  Kernel and plain version both sum
+# in f32 and round once to the output dtype: bf16 is held to one unit in the
+# last place of the plain version's output (rtol 2**-7), f32 as on the sweep.
+# Two wrong attentions must fail this bound in every run (attn_controls).
+ATTN_TOL_FULL = {"bfloat16": (1e-5, 2 ** -7), "float32": (2e-5, 1e-2)}
+# full-width logits, teacher-forced: the kernel's decode against the twin's,
+# no looser than the JAX package's decode bound (tests/test_models_lm.py:72)
+DECODE_TOL = (0.12, 0.05)
+# ... and against the port's forward over the same tokens: bf16 at the same
+# bound, f32 at the CPU tests' (measured on an H100: 0.1016, 2.0e-5, 0.0916;
+# PERF.md).  The bf16 bounds are sanity bounds; the f32 one gates the
+# kernel's precision.  Each must refuse a wrong attention (lm_check_phase).
+FORWARD_TOL = {"bf16 decode vs bf16 forward": (0.12, 0.05),
+               "f32 decode vs f32 forward": (1e-4, 1e-4),
+               "bf16 decode vs f32 forward": (0.12, 0.05)}
 
 
 def phase(name: str) -> None:
@@ -86,6 +131,7 @@ def kernels():
     """Every kernel wrapper of the port, by name (each counts its launches
     in ``.launches``)."""
     from repro_torch.kernels.classify_fused import classify_fused
+    from repro_torch.kernels.decode_attn import decode_attn
     from repro_torch.kernels.forest_vote import forest_vote
     from repro_torch.kernels.svm_lookup import svm_lookup
     from repro_torch.kernels.tcam_match import tcam_match
@@ -93,7 +139,7 @@ def kernels():
 
     return {"classify_fused": classify_fused, "tree_walk": tree_walk,
             "tcam_match": tcam_match, "forest_vote": forest_vote,
-            "svm_lookup": svm_lookup}
+            "svm_lookup": svm_lookup, "decode_attn": decode_attn}
 
 
 def launches() -> dict:
@@ -250,6 +296,103 @@ def stage_phase(prof, seed, device):
         print(f"B={B}: tree_walk, tcam_match (layers 0, {L // 2}, {L - 1}), "
               f"forest_vote ({int((got[1] != 0).sum())} leaf hits) and "
               "svm_lookup == plain bit for bit")
+
+
+def close(got, want, atol, rtol):
+    """(max |got - want|, whether |got - want| <= atol + rtol |want|
+    everywhere), in float32."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    return float(err.max()), bool((err <= atol + rtol * w.abs()).all())
+
+
+def attn_inputs(gen, B, Hq, Hkv, D, S, dtype, device):
+    """Random q, k, v and kv_len drawn from [1, S], with a row at 1 and a
+    row at S where B > 1."""
+    import torch
+
+    q = torch.randn(B, Hq, D, generator=gen, device=device).to(dtype)
+    k = torch.randn(B, S, Hkv, D, generator=gen, device=device).to(dtype)
+    v = torch.randn(B, S, Hkv, D, generator=gen, device=device).to(dtype)
+    kv_len = torch.randint(1, S + 1, (B,), generator=gen, device=device,
+                           dtype=torch.int32)
+    if B > 1:
+        kv_len[0], kv_len[-1] = 1, S
+    return q, k, v, kv_len
+
+
+def attn_controls(ins, want, tol):
+    """Two wrong attentions that the full-width bf16 bound must refuse: the
+    plain version's f32 softmax with its P.V sum accumulated in bf16 (each
+    row added in turn), and the plain version with each row's newest cached
+    position dropped (``kv_len - 1`` where ``kv_len > 1``).  Prints their
+    errors and whether the JAX package's bound would have passed them."""
+    import torch
+    from repro_torch.kernels.decode_attn import decode_attn_plain
+
+    q, k, v, kv_len = ins
+    B, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Hkv, Hq // Hkv, D).float()
+    logits = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) * D ** -0.5
+    mask = torch.arange(S, device=q.device)[None, :] < kv_len[:, None]
+    p = torch.softmax(logits.masked_fill(~mask[:, None, None], float("-inf")),
+                      dim=-1)
+    acc = torch.zeros_like(qg, dtype=torch.bfloat16)
+    vt = v.transpose(1, 2)
+    for s in range(int(kv_len.max())):
+        acc = acc + (p[..., s, None] * vt[:, :, None, s].float()).bfloat16()
+    wrong = {
+        "P.V accumulated in bf16": acc.reshape(B, Hq, D),
+        "newest row dropped": decode_attn_plain(
+            q, k, v, torch.where(kv_len > 1, kv_len - 1, kv_len)),
+    }
+    for what, got in wrong.items():
+        err, ok = close(got, want, *tol)
+        jax_ok = close(got, want, *ATTN_TOL["bfloat16"])[1]
+        print(f"  control, {what}: max abs err {err:.3g}: "
+              f"{'PASSES' if ok else 'refused'}; the JAX package's bound "
+              f"would {'pass' if jax_ok else 'refuse'} it")
+        if ok:
+            raise AssertionError(f"the full-width bound passes a wrong "
+                                 f"attention ({what})")
+
+
+def attn_phase(seed, device):
+    """decode_attn against its plain version: the tests/test_kernels.py:166
+    sweep and the full width, each in bf16 and f32."""
+    import torch
+    from repro_torch.kernels.decode_attn import decode_attn, decode_attn_plain
+
+    gen = torch.Generator(device=device).manual_seed(seed + 11)
+    shapes = [(2, 4, 4, 16, 33), (3, 8, 2, 32, 128), (1, 16, 8, 64, 700),
+              (16, 16, 8, 128, LM_CACHE)]
+    for shape in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            ins = attn_inputs(gen, *shape, dtype, device)
+            got = decode_attn(*ins)
+            want = decode_attn_plain(*ins)
+            torch.cuda.synchronize()
+            full = shape == shapes[-1]
+            tol = (ATTN_TOL_FULL if full else ATTN_TOL)[
+                str(dtype).removeprefix("torch.")]
+            err, ok = close(got, want, *tol)
+            print(f"(B, Hq, Hkv, D, S) = {shape} {dtype}: max abs err "
+                  f"{err:.3g} (atol {tol[0]:.3g}, rtol {tol[1]:.3g}); "
+                  f"output rms {float(want.float().square().mean().sqrt()):.3g}")
+            if not ok or got.dtype != dtype:
+                raise AssertionError(f"decode_attn != its plain version at "
+                                     f"{shape} {dtype}")
+            if full and dtype == torch.bfloat16:
+                attn_controls(ins, want, tol)
+    q, k, v, _ = attn_inputs(gen, 3, 4, 2, 16, 40, torch.float32, device)
+    kv_len = torch.tensor([0, 17, 0], dtype=torch.int32, device=device)
+    got = decode_attn(q, k, v, kv_len)
+    if not (torch.equal(got[0::2], torch.zeros_like(got[0::2]))
+            and close(got, decode_attn_plain(q, k, v, kv_len),
+                      *ATTN_TOL["float32"])[1]):
+        raise AssertionError("decode_attn: rows of kv_len 0 are not zeros")
+    print("kv_len = 0 rows give zeros, as the TPU kernel does")
 
 
 def make_zoo(seed):
@@ -460,6 +603,273 @@ def multi_switch_phase(prof, device, programs, zoo, pb):
     return runtimes
 
 
+def lm_path_phase(seed, device):
+    """The launcher's serve loop at full width; returns (cfg, model, runs)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+
+    cfg = get_config(LM_ARCH)
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} query / {cfg.n_kv} KV heads of {cfg.hd}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.param_count():,} params "
+          f"({cfg.dtype})")
+    steps = LM_SERVE["prompt_len"] + LM_SERVE["gen"]
+    n = LM_SERVE["swaps"] * steps
+    model, _, runs = checked(
+        lambda: serve(cfg, seed=seed, device=device, **LM_SERVE),
+        {"decode_attn": cfg.n_layers}, n_classify=n)
+    B = LM_SERVE["batch"]
+    for t, run in enumerate(runs):
+        print(f"tenant {t}: {B}x({LM_SERVE['prompt_len']} prompt + "
+              f"{LM_SERVE['gen']} greedy) steps in {run.seconds * 1e3:.1f} ms "
+              f"({B * LM_SERVE['gen'] / run.seconds:.1f} generated tok/s, "
+              f"{B * steps / run.seconds:.1f} tok/s over all steps)")
+    print(f"{n} decode steps x {cfg.n_layers} decode_attn launches; weights "
+          "and caches written in place across the swaps")
+    return cfg, model, runs
+
+
+def teacher_forced(model, cfg, fed, device, mode=None):
+    """Decode steps over ``fed`` [B, n] from an empty cache; the logits
+    [B, n, V].  Checks ``cfg.n_layers`` decode_attn launches a step on the
+    kernel path and none on the twin's."""
+    import torch
+    from repro_torch.models.transformer import decode_step, init_decode_state
+
+    fed = fed.to(device)
+    B, n = fed.shape
+
+    def run():
+        state = init_decode_state(cfg, B, n, device=device)
+        out = []
+        for t in range(n):
+            logits, state = decode_step(model, state, fed[:, t:t + 1], t, cfg,
+                                        mode=mode)
+            out.append(logits[:, 0])
+        return torch.stack(out, dim=1)
+
+    return checked(run, {"decode_attn": cfg.n_layers if mode is None else 0},
+                   n_classify=n)
+
+
+@contextlib.contextmanager
+def wrong_attention(fn):
+    """Within the block the decode step's attention is ``fn(q, k, v,
+    kv_len)``, a deliberately wrong one, in place of ``ops.decode_attn``:
+    the controls that show a bound refuses what it should."""
+    from repro_torch.kernels import ops
+
+    real = ops.decode_attn
+    ops.decode_attn = lambda q, k, v, kv_len, *, mode=None: fn(q, k, v,
+                                                               kv_len)
+    try:
+        yield
+    finally:
+        ops.decode_attn = real
+
+
+def lm_check_phase(cfg, model, runs, seed, device):
+    """Every tenant's steps, teacher-forced, against the twin attention and
+    the port's forward; the last tenant also in f32, and two wrong
+    attentions held to the same bounds, each of which must refuse them.
+    Reports every error, then fails on any outside its bound and on any
+    control inside one.  Returns the errors."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.launch.serve import tenant_generator
+    from repro_torch.models.transformer import DenseLM, forward
+
+    errors, bad = {}, []
+
+    def hold(what, got, want, tol):
+        err, ok = close(got, want, *tol)
+        errors[what] = err
+        print(f"  {what}: max abs err {err:.4g} (atol {tol[0]}, rtol "
+              f"{tol[1]}){'' if ok else '  <-- OUT OF BOUNDS'}")
+        if not ok:
+            bad.append(what)
+
+    def refuse(what, got, want, tol):
+        err, ok = close(got, want, *tol)
+        errors[f"control: {what}"] = err
+        print(f"  control, {what}: max abs err {err:.4g} (atol {tol[0]}, "
+              f"rtol {tol[1]}): {'PASSES  <-- NOT REFUSED' if ok else 'refused'}")
+        if ok:
+            bad.append(f"control {what}")
+
+    def bf16_rounded(q, k, v, kv_len):    # the twin, output rounded to bf16
+        return ref.decode_attn(q, k, v, kv_len).bfloat16().to(q.dtype)
+
+    def newest_dropped(q, k, v, kv_len):  # an off-by-one mask
+        return ref.decode_attn(q, k, v, kv_len - 1)
+
+    last = len(runs) - 1
+    for tenant in reversed(range(len(runs))):
+        run = runs[tenant]
+        if tenant != last:
+            model.init_(tenant_generator(seed, tenant, device))
+        print(f"tenant {tenant}, {run.fed.shape[1]} steps teacher-forced:")
+        dec = teacher_forced(model, cfg, run.fed, device)
+        P = run.prompt_len
+        greedy = dec[:, P - 1:].argmax(dim=-1).cpu()
+        if not torch.equal(greedy, run.tokens[:, P:]):
+            raise AssertionError(f"tenant {tenant}: the served tokens are not "
+                                 "the argmax of the teacher-forced steps")
+        twin = teacher_forced(model, cfg, run.fed, device, mode="ref")
+        print(f"  logits: max |x| {float(dec.float().abs().max()):.3f}, "
+              f"rms {float(dec.float().square().mean().sqrt()):.3f}")
+        hold(f"tenant {tenant} decode vs the twin attention", dec, twin,
+             DECODE_TOL)
+        fed = run.fed.to(device)
+        fwd = forward(model, fed, cfg)
+        hold(f"tenant {tenant} bf16 decode vs bf16 forward", dec, fwd,
+             FORWARD_TOL["bf16 decode vs bf16 forward"])
+        if tenant == last:
+            cfg32 = cfg.scaled(dtype="float32")
+            m32 = DenseLM(cfg32, device=device)
+            with torch.no_grad():
+                for p32, p in zip(m32.parameters(), model.parameters()):
+                    p32.copy_(p)
+            fwd32 = forward(m32, fed, cfg32)
+            hold(f"tenant {tenant} f32 decode vs f32 forward",
+                 teacher_forced(m32, cfg32, run.fed, device), fwd32,
+                 FORWARD_TOL["f32 decode vs f32 forward"])
+            hold(f"tenant {tenant} bf16 decode vs f32 forward", dec, fwd32,
+                 FORWARD_TOL["bf16 decode vs f32 forward"])
+            with wrong_attention(bf16_rounded):
+                refuse("f32 decode, attention rounded to bf16, vs f32 "
+                       "forward", teacher_forced(m32, cfg32, run.fed, device,
+                                                 mode="ref"),
+                       fwd32, FORWARD_TOL["f32 decode vs f32 forward"])
+            with wrong_attention(newest_dropped):
+                bad_dec = teacher_forced(model, cfg, run.fed, device,
+                                         mode="ref")
+            refuse("newest row dropped, vs the twin attention", bad_dec, twin,
+                   DECODE_TOL)
+            for what, want in (("bf16", fwd), ("f32", fwd32)):
+                refuse(f"newest row dropped, vs {what} forward", bad_dec,
+                       want, FORWARD_TOL[f"bf16 decode vs {what} forward"])
+            del m32, fwd32, bad_dec
+        print(f"  served tokens == argmax of the teacher-forced steps; "
+              f"{run.fed.shape[1]} x {cfg.n_layers} decode_attn launches per "
+              "kernel-path run, none on the twin's")
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"failed: {bad}")
+    return errors
+
+
+def sdpa_library(q, k, v, kv_len, torch):
+    """``scaled_dot_product_attention(..., enable_gqa=True)`` with a boolean
+    ``kv_len`` mask on the cache tensors as they lie ([B, S, Hkv, D] seen as
+    [B, Hkv, S, D]).  Returns (the call, the backend it picked, by the aten
+    op it dispatched to)."""
+    import torch.nn.functional as Fn
+    from torch.profiler import ProfilerActivity, profile
+
+    S = k.shape[1]
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < kv_len[:, None])[:, None, None, :]
+
+    def call():
+        return Fn.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        call()
+        torch.cuda.synchronize()
+    ops_ = " ".join(e.key for e in p.key_averages())
+    backends = [b for b in ("flash", "efficient", "cudnn", "math")
+                if f"_scaled_dot_product_{b}_attention" in ops_
+                or f"_scaled_dot_product_attention_{b}" in ops_]
+    return call, "/".join(backends) or "unknown"
+
+
+def lm_timing(cfg, model, seed, torch, n_iter=50):
+    """The full-width decode step with the cache filled to ``LM_CACHE`` at
+    B 16, and ``decode_attn`` on one layer's cache."""
+    from repro_torch.kernels.decode_attn import decode_attn, decode_attn_plain
+    from repro_torch.models.transformer import decode_step, init_decode_state
+
+    device = model.embed.device
+    B, T = LM_SERVE["batch"], LM_CACHE
+    gen = torch.Generator(device=device).manual_seed(seed + 13)
+    state = init_decode_state(cfg, B, T, device=device)
+    for cache in state.values():
+        cache.normal_(generator=gen)
+    tok = torch.randint(0, cfg.vocab, (B, 1), generator=gen, device=device)
+
+    def step():
+        return decode_step(model, state, tok, T - 1, cfg)
+
+    step()
+    torch.cuda.synchronize()
+    n = 20
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / n
+
+    q = torch.randn(B, cfg.n_heads, cfg.hd, generator=gen,
+                    device=device).to(cfg.tdtype)
+    kv_len = torch.full((B,), T, dtype=torch.int32, device=device)
+    ins = (q, state["k"][0], state["v"][0], kv_len)
+    err, ok = close(decode_attn(*ins), decode_attn_plain(*ins),
+                    *ATTN_TOL_FULL[cfg.dtype])
+    if not ok:
+        raise AssertionError("decode_attn != its plain version at the timed "
+                             "shape")
+    cyc = sleep_cycles_per_ms(torch)
+    k_ms = ms(lambda: decode_attn(*ins), n_iter, torch, cyc)
+    p_ms = ms(lambda: decode_attn_plain(*ins), max(n_iter // 10, 3), torch,
+              cyc)
+    k_ms2 = ms(lambda: decode_attn(*ins), n_iter, torch, cyc)
+    try:
+        lib, backend = sdpa_library(*ins, torch)
+        lib_err, lib_ok = close(lib(), decode_attn(*ins), *ATTN_TOL[cfg.dtype])
+        print(f"scaled_dot_product_attention vs the kernel: max abs err "
+              f"{lib_err:.3g}")
+        if not lib_ok:
+            raise AssertionError(f"scaled_dot_product_attention computes "
+                                 f"another function (max abs err {lib_err})")
+        lib_ms = ms(lib, n_iter, torch, cyc)
+    except (RuntimeError, TypeError) as e:   # torch without this SDPA form
+        lib_ms, backend = None, f"refused: {e}"
+    esize = q.element_size()
+    kv_rows = int(kv_len.sum())
+    nbytes = 2 * kv_rows * cfg.n_kv * cfg.hd * esize + 2 * q.numel() * esize \
+        + 4 * B
+    flops = 4 * kv_rows * cfg.n_heads * cfg.hd
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    step_bound = cfg.n_layers * bound + weights / HBM_BYTES_PER_S * 1e3
+    print(f"decode step at kv_len {T}, B {B}: {step_s * 1e3:.3f} ms "
+          f"({B / step_s:.1f} tok/s); bound {step_bound:.4f} ms "
+          f"({cfg.n_layers} x {bound:.5f} ms of attention + {weights:,} bytes "
+          "of weights at 3.35 TB/s)")
+    print(f"decode_attn: kernel {k_ms:.5f} ms and {k_ms2:.5f} ms (device time "
+          f"per launch, two runs of {n_iter}), plain {p_ms:.5f} ms, library "
+          f"{'null' if lib_ms is None else f'{lib_ms:.5f} ms'} "
+          f"[scaled_dot_product_attention, backend {backend}], bound "
+          f"{bound:.6f} ms ({nbytes:,} bytes at 3.35 TB/s; {flops:,} flops), "
+          f"max abs err {err:.3g}")
+    print(f"-- where the time goes, lm decode step at kv_len {T}")
+    busy_us = where_the_time_goes(step, torch, n=5)
+    print(f"device busy {busy_us:.1f} us per step = "
+          f"{100 * busy_us / (step_s * 1e6):.1f}% of the unprofiled step")
+    del state
+    torch.cuda.empty_cache()
+    return (dict(ms=min(k_ms, k_ms2), plain_ms=p_ms, bound_ms=bound,
+                 max_abs_err=err, matched=ok, library_ms=lib_ms,
+                 bytes=nbytes),
+            B / step_s)
+
+
 def bytes_touched(zoo, pb, prof, torch):
     """The least bytes each kernel must move on these inputs: each input
     byte it needs read once, each output written once.  Walk records count
@@ -516,8 +926,11 @@ def bytes_touched(zoo, pb, prof, torch):
 
 def where_the_time_goes(step, torch, n=10):
     """``torch.profiler`` over ``n`` end-to-end steps: the device's busy
-    share of the wall time (under the profiler) and the top ops by host and
-    by device time."""
+    time per step (the kernels' and copies' own device time, each counted
+    once: the torch ops that launched them are left out of the sum) and its
+    share of the wall time under the profiler; the top host ops and the top
+    device activities.  Returns the busy us per step."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     step()
@@ -534,21 +947,22 @@ def where_the_time_goes(step, torch, n=10):
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
-    busy = sum(dev_us(e) for e in events)
+    on_device = [e for e in events if e.device_type != DeviceType.CPU]
+    busy = sum(dev_us(e) for e in on_device)
     if busy == 0:
         print("profiler: no device time recorded; busy share not measured")
     else:
         print(f"profiler over {n} steps: wall {wall_us / n:.1f} us/step, "
               f"device busy {busy / n:.1f} us/step "
               f"({100 * busy / wall_us:.1f}% of the wall)")
-    for key in ("self_cpu_time_total", "self_device_time_total"
-                if hasattr(events[0], "self_device_time_total")
-                else "self_cuda_time_total"):
-        rows = sorted(events, key=lambda e: getattr(e, key), reverse=True)
-        print(f"top ops by {key} (us per step, calls per step):")
-        for e in rows[:8]:
-            print(f"  {getattr(e, key) / n:10.1f}  {e.count / n:6.1f}  "
-                  f"{e.key[:70]}")
+    for what, rows, us in (
+            ("host ops by self CPU time", events,
+             lambda e: e.self_cpu_time_total),
+            ("device activities by device time", on_device, dev_us)):
+        print(f"top {what} (us per step, calls per step):")
+        for e in sorted(rows, key=us, reverse=True)[:8]:
+            print(f"  {us(e) / n:10.1f}  {e.count / n:6.1f}  {e.key[:70]}")
+    return busy / n
 
 
 LIBRARY_NONE = {
@@ -706,8 +1120,8 @@ def timing_phase(zoos, runtimes, pb, prof, torch, n_iter=50):
         if lib_ms is None:
             print(f"  library_ms null: {LIBRARY_NONE[name]}")
         out[name] = dict(ms=min(k_ms, k_ms2), plain_ms=p_ms, bound_ms=bound,
-                         max_abs_err=err, library_ms=lib_ms,
-                         bytes=nbytes[name])
+                         max_abs_err=err, matched=err == 0,
+                         library_ms=lib_ms, bytes=nbytes[name])
 
     B = pb.batch
     X = pb.features.numpy()
@@ -763,49 +1177,71 @@ def main(argv=None) -> int:
     kernel_phase(prof, args.seed, device)
     phase("3 staged kernels vs their plain versions, the same tables")
     stage_phase(prof, args.seed, device)
+    phase("4 decode_attn vs its plain version, the sweep and the full width")
+    attn_phase(args.seed, device)
     models, programs, test_sets = make_zoo(args.seed)
     path_launches = {}
 
-    def main_path(name, run, modes):
+    def main_path(name, run, needed):
         zero_launches()
         result = run()
         path_launches[name] = got = launches()
         print(f"main path {name}: launches {got}")
-        for k in {k for m in modes for k in per_classify(m, prof)}:
+        for k in needed:
             if got[k] < 1:
                 raise AssertionError(f"the {name} path never launched {k}")
         return result
 
+    def classify_kernels(modes):
+        return {k for m in modes for k in per_classify(m, prof)}
+
     zoos = {}
-    for n, mode in (("4", None), ("5", "unfused"), ("5", "layerwise")):
+    for n, mode in (("5", None), ("6", "unfused"), ("6", "layerwise")):
         phase(f"{n} main path: the zoo through ZooServer(mode={mode!r})")
         zoos[mode], pb = main_path(
             f"zoo_{mode or 'fused'}",
             lambda mode=mode: main_path_phase(prof, args.seed, device, models,
                                               programs, test_sets, mode),
-            [mode])
-    phase("6 main path: the zoo planned over fat_tree(4), hop by hop")
+            classify_kernels([mode]))
+    phase("7 main path: the zoo planned over fat_tree(4), hop by hop")
     runtimes = main_path("multi_switch", lambda: multi_switch_phase(
-        prof, device, programs, zoos[None], pb), [None, "layerwise"])
-    phase(f"7 timing at B = {BATCH}")
+        prof, device, programs, zoos[None], pb),
+        classify_kernels([None, "layerwise"]))
+    phase(f"8 main path: LM decode serving, {LM_ARCH} at full width")
+    cfg, lm, runs = main_path("lm_decode",
+                              lambda: lm_path_phase(args.seed, device),
+                              ["decode_attn"])
+    lm_check_phase(cfg, lm, runs, args.seed, device)
+    phase(f"9 timing at B = {BATCH}; the decode step at kv_len {LM_CACHE}")
     t, rps = timing_phase(zoos, runtimes, pb, prof, torch)
+    t["decode_attn"], step_tok_s = lm_timing(cfg, lm, args.seed, torch)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
+    B = LM_SERVE["batch"]
+    served = {"generated_tokens_per_s": [
+        B * LM_SERVE["gen"] / r.seconds for r in runs],
+        f"decode_step_tokens_per_s_at_kv_len_{LM_CACHE}": step_tok_s}
+    tolerance = {k: ({"atol": ATTN_TOL_FULL[cfg.dtype][0],
+                      "rtol": ATTN_TOL_FULL[cfg.dtype][1]}
+                     if k == "decode_attn" else {"atol": 0, "rtol": 0})
+                 for k in kernels()}
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"paths": {"launches": path_launches,
-                                "requests_per_s": rps}}))
+                                "requests_per_s": rps,
+                                "lm_decode": served}}))
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/csrc/{name}.cu",
         "replaces": REPLACES[name],
         "launches": sum(p[name] for p in path_launches.values()),
-        "max_abs_err": t[name]["max_abs_err"], "ms": t[name]["ms"],
+        "max_abs_err": t[name]["max_abs_err"],
+        "tolerance": tolerance[name], "ms": t[name]["ms"],
         "plain_ms": t[name]["plain_ms"], "bound_ms": t[name]["bound_ms"],
         "bound_by": "bytes", "library_ms": t[name]["library_ms"],
-        "matched_twin": t[name]["max_abs_err"] == 0}
+        "matched_twin": t[name]["matched"]}
         for name in kernels()]}))
     print(smi[0] if smi else "nvidia-smi: no answer")
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,76 @@
+"""The architecture registry: ``get_config(name)``, ``smoke_config(name)``
+and the shape grid ``SHAPES``.
+
+Port of ``src/repro/configs/__init__.py``.  The port runs the dense family
+only, so only the dense configs are copied (``internlm2_1_8b.py``,
+``internlm2_20b.py``, ``starcoder2_15b.py``, ``granite_20b.py``,
+``chameleon_34b.py``, each naming its source); asking for an arch of
+another family raises ``NotImplementedError`` until a later slice ports it
+(ROADMAP.md Queue 1 item 9).
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from repro_torch.models.common import ArchConfig
+
+__all__ = ["ARCH_IDS", "ShapeSpec", "SHAPES", "get_config", "smoke_config"]
+
+ARCH_IDS = [
+    "internlm2-1.8b",
+    "internlm2-20b",
+    "starcoder2-15b",
+    "granite-20b",
+    "recurrentgemma-2b",
+    "whisper-tiny",
+    "grok-1-314b",
+    "qwen3-moe-235b-a22b",
+    "rwkv6-7b",
+    "chameleon-34b",
+]
+
+# the archs whose family the port does not run yet
+_NOT_PORTED = {
+    "recurrentgemma-2b": "hybrid",
+    "whisper-tiny": "encdec",
+    "grok-1-314b": "moe",
+    "qwen3-moe-235b-a22b": "moe",
+    "rwkv6-7b": "rwkv",
+}
+
+_MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+def _module(name: str):
+    if name not in _MOD:
+        raise KeyError(f"unknown arch {name!r}: one of {ARCH_IDS}")
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{name} ({_NOT_PORTED[name]}) is not ported yet: the port runs "
+            "the dense family (ROADMAP.md Queue 1 item 9)")
+    return importlib.import_module(f"repro_torch.configs.{_MOD[name]}")
+
+
+def get_config(name: str) -> ArchConfig:
+    return _module(name).ARCH
+
+
+def smoke_config(name: str) -> ArchConfig:
+    return _module(name).SMOKE

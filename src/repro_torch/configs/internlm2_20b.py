@@ -1,0 +1,9 @@
+"""internlm2-20b [dense] — GQA kv=8 [arXiv:2403.17297; hf]. Copied from
+src/repro/configs/internlm2_20b.py."""
+from repro_torch.models.common import ArchConfig
+
+ARCH = ArchConfig(
+    name="internlm2-20b", family="dense",
+    n_layers=48, d_model=6144, n_heads=48, n_kv=8, d_ff=16384, vocab=92544,
+)
+SMOKE = ARCH.scaled(n_layers=2, d_model=64, n_heads=4, n_kv=2, d_ff=128, vocab=256)

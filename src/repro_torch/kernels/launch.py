@@ -46,15 +46,25 @@ def check(name: str, x: torch.Tensor, dtype: torch.dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _c_type(arg):
+    """The C type ``arg`` is passed as: a tensor as its device pointer, a
+    Python int as ``int``, a Python float as ``float``."""
+    for kind, ctype in ((torch.Tensor, ctypes.c_void_p),
+                        (int, ctypes.c_int), (float, ctypes.c_float)):
+        if isinstance(arg, kind):
+            return ctype
+    raise TypeError(f"no C type for a kernel argument of {type(arg)}")
+
+
 def launch(source: str, symbol: str, device: torch.device, *args) -> None:
     """Build ``csrc/<source>.cu`` (once) and launch its C function
     ``symbol`` on the current stream of ``device``.  ``args`` are tensors,
-    passed as device pointers, and ints; the stream goes last.  Raises if
-    the launch is refused (too many threads, too much shared memory)."""
+    passed as device pointers, ints, passed as C ``int``, and floats,
+    passed as C ``float``; the stream goes last.  Raises if the launch is
+    refused (too many threads, too much shared memory)."""
     fn = getattr(build(source)[source].lib, symbol)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p if isinstance(a, torch.Tensor)
-                       else ctypes.c_int for a in args] + [ctypes.c_void_p]
+        fn.argtypes = [_c_type(a) for a in args] + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

@@ -1,6 +1,7 @@
 """Public kernel API: dispatch between the CUDA kernels and the torch twins.
 
-Port of ``src/repro/kernels/ops.py`` for the classify paths.  Modes:
+Port of ``src/repro/kernels/ops.py``: the classify paths and
+``decode_attn``.  Modes:
 
 * ``"cuda"`` — the kernel wrappers (``classify_fused``, ``tree_walk``,
   ``tcam_match``, ``forest_vote``, ``svm_lookup``), which launch their CUDA
@@ -17,13 +18,15 @@ the kernels for CUDA tensors and to the twins for CPU ones, so a CUDA
 tensor reaches a twin only when ``"ref"`` is asked for.  Every stage of the
 staged modes reads the same install-time operand image as the fused kernel
 (``tiling.ClassifyFusedOperands``: ``.walk``, ``.leaves``, ``.svm``).
-Launches are counted on each wrapper (``<wrapper>.launches``); the JAX
-package's jaxpr counters have no counterpart here.
+``decode_attn`` takes ``None``, ``"cuda"`` or ``"ref"`` alone.  Launches
+are counted on each wrapper (``<wrapper>.launches``); the JAX package's
+jaxpr counters have no counterpart here.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import decode_attn as _attn
 from repro_torch.kernels import forest_vote as _vote
 from repro_torch.kernels import ref, tiling
 from repro_torch.kernels import svm_lookup as _svm
@@ -34,7 +37,7 @@ from repro_torch.kernels.classify_fused import classify_fused
 __all__ = ["MODES", "resolve_mode", "base_mode", "tcam_match",
            "tcam_match_v", "tree_walk_v", "svm_lookup", "svm_lookup_v",
            "forest_predict_vote", "forest_predict_vote_v",
-           "classify_fused_v"]
+           "classify_fused_v", "decode_attn"]
 
 _KERNEL_MODES = ("cuda", "ref")
 _STAGED = ("unfused", "layerwise")
@@ -210,3 +213,17 @@ def classify_fused_v(codes, features, vid, code_value, code_mask, fid, f_lo,
     sums = svm_lookup_v(features, vid, lut, bias, mode=m,
                         prep=None if prep is None else prep.svm)
     return walked, label, sums
+
+
+def decode_attn(q, k, v, kv_len, *, mode: str | None = None):
+    """GQA decode attention, q [B, Hq, D] over the cache k/v
+    [B, S, Hkv, D] masked to ``kv_len`` int32 [B]: ``"cuda"`` is the
+    kernel wrapper (one launch on CUDA tensors), ``"ref"`` the twin;
+    ``None`` follows the device."""
+    m = resolve_mode(mode, q.device)
+    if m not in _KERNEL_MODES:
+        raise ValueError(f"decode_attn mode {mode!r}: one of None, "
+                         f"{_KERNEL_MODES}")
+    if m == "ref":
+        return ref.decode_attn(q, k, v, kv_len)
+    return _attn.decode_attn(q, k, v, kv_len)

@@ -1,8 +1,9 @@
-"""Plain-torch twins of the classify oracles (the correctness contract).
+"""Plain-torch twins of the kernel oracles (the correctness contract).
 
 Port of ``src/repro/kernels/ref.py`` (``tcam_match_v``, ``tree_walk_v``,
-``svm_lookup_v``, ``forest_predict_vote_v``, ``classify_fused_v`` and the
-single-version ``tcam_match``, ``svm_lookup``, ``forest_predict_vote``).
+``svm_lookup_v``, ``forest_predict_vote_v``, ``classify_fused_v``, the
+single-version ``tcam_match``, ``svm_lookup``, ``forest_predict_vote``, and
+``decode_attn``).
 Each function is the semantic ground truth the CUDA kernels are held to bit
 for bit, and the engine's CPU execution path.  They run on any device.
 
@@ -17,13 +18,17 @@ of torch against jnp, each handled where it bites:
 * vote scores sum in tree order t = 0..T-1 in float32, so near-ties break
   the same way as the oracle.
 
-Two places where the port pins behaviour the JAX oracle leaves to its
-gather's out-of-bounds mode, following the TPU kernel instead:
+Three places where the port pins behaviour the JAX oracle leaves to its
+gather's out-of-bounds mode or to a softmax of nothing, following the TPU
+kernel instead:
 
 * a feature outside ``[0, levels)`` adds 0 to the SVM sums;
 * a packet whose ``vid`` is outside ``[0, V)`` keeps its codes and gets
   label 0, per-tree labels 0 and sums 0, in every stage (the plane
-  sanitises ``vid`` before classify anyway).
+  sanitises ``vid`` before classify anyway);
+* a decode row with ``kv_len <= 0`` attends to nothing and gives zeros,
+  where the JAX oracle gives NaN (the decode path always has
+  ``kv_len >= 1``).
 """
 from __future__ import annotations
 
@@ -31,7 +36,7 @@ import torch
 
 __all__ = ["tcam_match", "svm_lookup", "forest_predict_vote",
            "tcam_match_v", "tree_walk_v", "svm_lookup_v",
-           "forest_predict_vote_v", "classify_fused_v"]
+           "forest_predict_vote_v", "classify_fused_v", "decode_attn"]
 
 _U32 = 0xFFFFFFFF
 
@@ -193,3 +198,24 @@ def classify_fused_v(codes, features, vid, code_value, code_mask, fid, f_lo,
         walked, vid, pred_codes, pred_labels, pred_valid, weights, n_classes)
     sums = svm_lookup_v(features, vid, lut, bias)
     return walked, label, sums
+
+
+def decode_attn(q, k, v, kv_len):
+    """GQA decode attention: one new token's query q [B, Hq, D] against a
+    KV cache k/v [B, S, Hkv, D], row b masked to its first ``kv_len[b]``
+    positions; a float32 softmax, the output [B, Hq, D] in q's dtype.
+    Query head h reads KV head ``h // (Hq // Hkv)``.  A row with
+    ``kv_len <= 0`` gives zeros, as the TPU kernel does."""
+    B, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Hkv, G, D).float()
+    logits = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) * D ** -0.5
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < kv_len.to(torch.int64)[:, None])[:, None, None, :]
+    logits = logits.masked_fill(~mask, float("-inf"))
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - torch.where(torch.isinf(m), 0.0, m))
+    out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
+    out = out / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return out.reshape(B, Hq, D).to(q.dtype)

@@ -1,3 +1,9 @@
-from repro_torch.serving.serve import ZooServer
+from repro_torch.serving.serve import (
+    ZooServer,
+    greedy_decode,
+    make_decode_step,
+    make_prefill_step,
+)
 
-__all__ = ["ZooServer"]
+__all__ = ["ZooServer", "greedy_decode", "make_decode_step",
+           "make_prefill_step"]

@@ -1,21 +1,62 @@
-"""``ZooServer`` — the in-network classifier zoo's serving front.
+"""Serving fronts: the LM prefill / decode steps and ``ZooServer``, the
+in-network classifier zoo's front.
 
-Port of the classification half of ``src/repro/serving/serve.py``
-(``ZooServer``, :49-175); the LM steps of that module wait for a later
-slice.  A ``DataplaneRuntime`` hosting ``profile.max_versions`` resident
-versions per pipeline, with install / evict / A-B traffic-split rollout as
-control-plane operations and admission bucketing on every classify.
+Port of ``src/repro/serving/serve.py``: ``make_prefill_step`` (:28),
+``make_decode_step`` (:40), ``greedy_decode`` (:178, a Python loop where
+JAX has ``lax.scan``) and ``ZooServer`` (:49-175), a ``DataplaneRuntime``
+hosting ``profile.max_versions`` resident versions per pipeline, with
+install / evict / A-B traffic-split rollout as control-plane operations and
+admission bucketing on every classify.  Swapping LM weights is an in-place
+write into the same parameter tensors (``DenseLM.init_`` / ``load_``).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.packets import PacketBatch
 from repro_torch.core.plane import PackedProgram, PlaneProfile, SwitchEngine
 from repro_torch.core.translator import TableProgram, translate
+from repro_torch.models.common import ArchConfig
+from repro_torch.models.transformer import decode_step, forward
 from repro_torch.runtime import DataplaneRuntime, Executor, SingleSwitchExecutor
 
-__all__ = ["ZooServer"]
+__all__ = ["make_prefill_step", "make_decode_step", "greedy_decode",
+           "ZooServer"]
+
+
+def make_prefill_step(cfg: ArchConfig, *, q_chunk: int = 1024):
+    """prefill(params, tokens) -> logits [B, S, V].
+
+    q-chunked attention bounds the logits working set for long prefill."""
+
+    def prefill(params, tokens):
+        return forward(params, tokens, cfg, q_chunk=q_chunk)
+
+    return prefill
+
+
+def make_decode_step(cfg: ArchConfig):
+    """step(params, state, tokens [B,1], pos) -> (logits [B,1,V], state),
+    the caches written in place."""
+
+    def step(params, state, tokens, pos):
+        return decode_step(params, state, tokens, pos, cfg)
+
+    return step
+
+
+def greedy_decode(params, state, first_token: torch.Tensor, pos0: int,
+                  cfg: ArchConfig, n_steps: int) -> torch.Tensor:
+    """Greedy argmax continuation: feeds ``first_token`` [B, 1] at
+    ``pos0`` and each step's argmax after it; returns the ``n_steps``
+    tokens produced [B, n_steps]."""
+    tok, toks = first_token, []
+    for i in range(n_steps):
+        logits, state = decode_step(params, state, tok, pos0 + i, cfg)
+        tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(tok.dtype)
+        toks.append(tok[:, 0])
+    return torch.stack(toks, dim=1)
 
 
 class ZooServer:

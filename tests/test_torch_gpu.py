@@ -6,8 +6,12 @@ Every test here needs a CUDA card and skips without one; they import only
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
 (``--noconftest``: the shared ``conftest.py`` imports the JAX package.)
-Inputs are numpy draws from a seed; every output is an integer and the vote
-sums the same f32 weights in the same order, so the tolerance is exact.
+Inputs are numpy draws from a seed.  The classify kernels' outputs are
+integers and the vote sums the same f32 weights in the same order, so their
+tolerance is exact; ``decode_attn`` differs from its plain version in
+summation order only, held to the JAX package's tolerances (bf16 atol 2e-2,
+f32 atol 2e-5, rtol 1e-2), and the LM on the card to the CPU run within
+f32 atol/rtol 1e-4.
 """
 import numpy as np
 import pytest
@@ -22,11 +26,14 @@ from repro_torch.core.topology import fat_tree
 from repro_torch.core.translator import translate
 from repro_torch.data import load_dataset
 from repro_torch.kernels import ref, tiling
+from repro_torch.configs import smoke_config
 from repro_torch.kernels.classify_fused import classify_fused
+from repro_torch.kernels.decode_attn import decode_attn, decode_attn_plain
 from repro_torch.kernels.forest_vote import forest_vote, forest_vote_plain
 from repro_torch.kernels.svm_lookup import svm_lookup, svm_lookup_plain
 from repro_torch.kernels.tcam_match import tcam_match, tcam_match_plain
 from repro_torch.kernels.tree_walk import tree_walk, tree_walk_plain
+from repro_torch.models import transformer
 from repro_torch.runtime import DataplaneRuntime, SequentialPathExecutor
 from repro_torch.serving import ZooServer
 
@@ -267,3 +274,101 @@ def test_sequential_path_on_the_card(cuda, satdap_zoo):
         out, launched = _launched(fn, lambda: rt.run(pb))
         assert launched == n
         assert torch.equal(out.rslt, want)
+
+
+# (B, Hq, Hkv, D, S): the sweep of tests/test_kernels.py:166, MQA with a
+# group of 12 (two query chunks), and internlm2-1.8b's full width
+ATTN_SWEEP = [(2, 4, 4, 16, 33), (3, 8, 2, 32, 128), (1, 16, 8, 64, 700),
+              (3, 12, 1, 64, 257), (16, 16, 8, 128, 4096)]
+# the JAX package's tolerances (tests/test_kernels.py:178); at full width,
+# where rows of long kv_len give outputs of ~0.03, bf16 is held to one unit in the last place of
+# the plain version's output (both sum in f32 and round once), as
+# chip_smoke.py holds it
+ATTN_TOL = {torch.bfloat16: dict(atol=2e-2, rtol=1e-2),
+            torch.float32: dict(atol=2e-5, rtol=1e-2)}
+ATTN_TOL_FULL = {torch.bfloat16: dict(atol=1e-5, rtol=2 ** -7),
+                 torch.float32: ATTN_TOL[torch.float32]}
+
+
+def attn_case(device, B, Hq, Hkv, D, S, dtype, seed=0):
+    rng = np.random.default_rng(seed + B * S)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+            .to(device=device, dtype=dtype)
+    kv_len = rng.integers(1, S + 1, B).astype(np.int32)
+    kv_len[0], kv_len[-1] = 1, S
+    return (t(B, Hq, D), t(B, S, Hkv, D), t(B, S, Hkv, D),
+            torch.from_numpy(kv_len).to(device))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=str)
+@pytest.mark.parametrize("B,Hq,Hkv,D,S", ATTN_SWEEP)
+def test_decode_attn_kernel_matches_plain(cuda, B, Hq, Hkv, D, S, dtype):
+    ins = attn_case(cuda, B, Hq, Hkv, D, S, dtype)
+    got, n = _launched(decode_attn, lambda: decode_attn(*ins))
+    assert n == 1 and got.dtype == dtype and got.shape == (B, Hq, D)
+    full = (B, Hq, Hkv, D, S) == ATTN_SWEEP[-1]
+    torch.testing.assert_close(got.float(), decode_attn_plain(*ins).float(),
+                               **(ATTN_TOL_FULL if full else ATTN_TOL)[dtype])
+
+
+def test_decode_attn_kv_len_zero_gives_zeros(cuda):
+    q, k, v, _ = attn_case(cuda, 3, 4, 2, 16, 40, torch.float32)
+    kv_len = torch.tensor([0, 17, 0], dtype=torch.int32, device=cuda)
+    got = decode_attn(q, k, v, kv_len)
+    assert torch.equal(got[0::2], torch.zeros_like(got[0::2]))
+    torch.testing.assert_close(got, decode_attn_plain(q, k, v, kv_len),
+                               **ATTN_TOL[torch.float32])
+
+
+def test_decode_attn_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v, kv_len = attn_case(cuda, 2, 4, 2, 32, 9, torch.float32)
+    with pytest.raises(TypeError):          # dtype
+        decode_attn(q.half(), k.half(), v.half(), kv_len)
+    with pytest.raises(TypeError):          # k's dtype differs from q's
+        decode_attn(q, k.bfloat16(), v, kv_len)
+    with pytest.raises(TypeError):          # kv_len not int32
+        decode_attn(q, k, v, kv_len.long())
+    with pytest.raises(ValueError):         # head dim
+        decode_attn(*attn_case(cuda, 2, 4, 2, 96, 9, torch.float32))
+    with pytest.raises(ValueError):         # Hq % Hkv
+        decode_attn(*attn_case(cuda, 2, 6, 4, 32, 9, torch.float32))
+    with pytest.raises(ValueError):         # layout
+        decode_attn(q, k.transpose(1, 2).contiguous().transpose(1, 2), v,
+                    kv_len)
+    with pytest.raises(ValueError):         # devices
+        decode_attn(q, k.cpu(), v, kv_len)
+    with pytest.raises(ValueError):         # not 16-byte aligned
+        buf = torch.empty(k.numel() + 1, device=cuda)
+        decode_attn(q, buf[1:].view(k.shape), v, kv_len)
+
+
+def test_smoke_lm_on_the_card_equals_the_cpu(cuda):
+    """The smoke config's decode steps and forward in f32: the card (the
+    kernel, 2 launches a step) against the CPU (the plain version)."""
+    cfg = smoke_config("internlm2-1.8b").scaled(dtype="float32")
+    cpu = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                  device="cpu")
+    card = transformer.DenseLM(cfg, device=cuda)
+    with torch.no_grad():
+        for p, w in zip(card.parameters(), cpu.parameters()):
+            p.copy_(w)
+    B, S = 3, 10
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (B, S)))
+    states = {d: transformer.init_decode_state(cfg, B, S, device=d)
+              for d in ("cpu", cuda)}
+    for t in range(S):
+        want, _ = transformer.decode_step(cpu, states["cpu"],
+                                          toks[:, t:t + 1], t, cfg)
+        (got, _), n = _launched(decode_attn, lambda: transformer.decode_step(
+            card, states[cuda], toks[:, t:t + 1].to(cuda), t, cfg))
+        assert n == cfg.n_layers
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(states[cuda]["k"].cpu(), states["cpu"]["k"],
+                               atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(
+        transformer.forward(card, toks.to(cuda), cfg).cpu(),
+        transformer.forward(cpu, toks, cfg), atol=1e-4, rtol=1e-4)
