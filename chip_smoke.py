@@ -24,7 +24,10 @@ JAX package.  Phases, each fatal on failure:
              width (B 16, 16 query and 8 KV heads of 128, S 4096), each in
              bf16 and f32, within the JAX package's tolerances on the sweep
              and one bf16 ulp at full width, a bound that two wrong
-             attentions must fail; rows with ``kv_len = 0`` give zeros.
+             attentions must fail; at granite-20b's heads (48 query, 1 KV)
+             at B 16 and internlm2-1.8b's at B 4 over a 32768 cache; at
+             kv_len on and beside the kernel's tile and span edges, 0 and
+             S; rows with ``kv_len = 0`` give zeros.
 5. path    — a zoo at the paper's profile (``PlaneProfile(max_versions=4)``)
              built with the port's own models and translator: an 8-tree
              random forest and a deeper decision tree on the cicids-17
@@ -64,7 +67,10 @@ JAX package.  Phases, each fatal on failure:
              runtime.  The full-width decode step with the cache filled to
              ``kv_len`` 4096 at B 16: ms per step, tokens/s, ``decode_attn``
              per launch against its bound, plain version and
-             ``scaled_dot_product_attention``, and a profiler table.
+             ``scaled_dot_product_attention``, and a profiler table; the
+             same for ``decode_attn`` at the two further shapes of phase 4;
+             each kernel's gap to its bound, launch geometry, and the
+             redesigned kernels' registers and shared memory.
 
 Each main path (5, 6, 7, 8) runs with every kernel's launch count set to 0
 just before it and read just after; a kernel of the path that never
@@ -111,6 +117,11 @@ ATTN_TOL = {"bfloat16": (2e-2, 1e-2), "float32": (2e-5, 1e-2)}
 # last place of the plain version's output (rtol 2**-7), f32 as on the sweep.
 # Two wrong attentions must fail this bound in every run (attn_controls).
 ATTN_TOL_FULL = {"bfloat16": (1e-5, 2 ** -7), "float32": (2e-5, 1e-2)}
+# two more full-width shapes (B, Hq, Hkv, D, S): granite-20b's MQA heads
+# (G 48), and internlm2-1.8b's at a 32768 cache with B * Hkv = 32 groups,
+# the case splitting the cache exists for (537 MB of K/V in bf16)
+ATTN_WIDE = {"granite-20b heads, B 16, kv_len 4096": (16, 48, 1, 128, 4096),
+             "internlm2-1.8b heads, B 4, kv_len 32768": (4, 16, 8, 128, 32768)}
 # full-width logits, teacher-forced: the kernel's decode against the twin's,
 # no looser than the JAX package's decode bound (tests/test_models_lm.py:72)
 DECODE_TOL = (0.12, 0.05)
@@ -358,6 +369,56 @@ def attn_controls(ins, want, tol):
                                  f"attention ({what})")
 
 
+def hold_attn(what, got, want, tol):
+    """Fail unless ``got`` is within (atol, rtol) of ``want``."""
+    import torch
+
+    torch.cuda.synchronize()
+    err, ok = close(got, want, *tol)
+    print(f"{what}: max abs err {err:.3g} (atol {tol[0]:.3g}, rtol "
+          f"{tol[1]:.3g})")
+    if not ok or got.dtype != want.dtype:
+        raise AssertionError(f"decode_attn != its plain version: {what}")
+    return err
+
+
+def edge_lengths(p, S):
+    """kv_len at, beside and between a plan's tile and span edges, 0 and
+    S."""
+    edges = {0, 1, p.tile - 1, p.tile, p.tile + 1, p.split_len - 1,
+             p.split_len, p.split_len + 1, 2 * p.split_len, S - 1, S}
+    return sorted(x for x in edges if 0 <= x <= S)
+
+
+def edge_phase(gen, device):
+    """The split-KV kernel at internlm2-1.8b's and granite-20b's heads
+    (S 4096), one row per kv_len at and beside the tile and span edges, 0
+    and S, held to the full-width bound; rows of kv_len 0 give zeros."""
+    import torch
+    from repro_torch.kernels.decode_attn import (
+        decode_attn,
+        decode_attn_plain,
+        plan,
+    )
+
+    for Hq, Hkv in ((16, 8), (48, 1)):
+        for dtype in (torch.bfloat16, torch.float32):
+            S, D = LM_CACHE, 128
+            lens = edge_lengths(plan(11, Hq, Hkv, D, S, dtype), S)
+            p = plan(len(lens), Hq, Hkv, D, S, dtype)
+            lens = edge_lengths(p, S)
+            q, k, v, _ = attn_inputs(gen, len(lens), Hq, Hkv, D, S, dtype,
+                                     device)
+            kv_len = torch.tensor(lens, dtype=torch.int32, device=device)
+            got = decode_attn(q, k, v, kv_len)
+            hold_attn(f"edges Hq {Hq} Hkv {Hkv} {dtype}, {p.n_split} spans "
+                      f"of {p.split_len}, tiles of {p.tile}, kv_len {lens}",
+                      got, decode_attn_plain(q, k, v, kv_len),
+                      ATTN_TOL_FULL[str(dtype).removeprefix("torch.")])
+            if not torch.equal(got[0], torch.zeros_like(got[0])):
+                raise AssertionError("decode_attn: kv_len 0 is not zeros")
+
+
 def attn_phase(seed, device):
     """decode_attn against its plain version: the tests/test_kernels.py:166
     sweep and the full width, each in bf16 and f32."""
@@ -385,6 +446,14 @@ def attn_phase(seed, device):
                                      f"{shape} {dtype}")
             if full and dtype == torch.bfloat16:
                 attn_controls(ins, want, tol)
+    for name, shape in ATTN_WIDE.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            ins = attn_inputs(gen, *shape, dtype, device)
+            hold_attn(f"{name} {dtype}", decode_attn(*ins),
+                      decode_attn_plain(*ins),
+                      ATTN_TOL_FULL[str(dtype).removeprefix("torch.")])
+            del ins
+    edge_phase(gen, device)
     q, k, v, _ = attn_inputs(gen, 3, 4, 2, 16, 40, torch.float32, device)
     kv_len = torch.tensor([0, 17, 0], dtype=torch.int32, device=device)
     got = decode_attn(q, k, v, kv_len)
@@ -792,7 +861,6 @@ def sdpa_library(q, k, v, kv_len, torch):
 def lm_timing(cfg, model, seed, torch, n_iter=50):
     """The full-width decode step with the cache filled to ``LM_CACHE`` at
     B 16, and ``decode_attn`` on one layer's cache."""
-    from repro_torch.kernels.decode_attn import decode_attn, decode_attn_plain
     from repro_torch.models.transformer import decode_step, init_decode_state
 
     device = model.embed.device
@@ -819,21 +887,50 @@ def lm_timing(cfg, model, seed, torch, n_iter=50):
                     device=device).to(cfg.tdtype)
     kv_len = torch.full((B,), T, dtype=torch.int32, device=device)
     ins = (q, state["k"][0], state["v"][0], kv_len)
-    err, ok = close(decode_attn(*ins), decode_attn_plain(*ins),
-                    *ATTN_TOL_FULL[cfg.dtype])
-    if not ok:
-        raise AssertionError("decode_attn != its plain version at the timed "
-                             "shape")
     cyc = sleep_cycles_per_ms(torch)
+    a = attn_timing(f"{LM_ARCH} B {B} kv_len {T}", ins, torch, cyc, n_iter)
+    bound = a["bound_ms"]
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    step_bound = cfg.n_layers * bound + weights / HBM_BYTES_PER_S * 1e3
+    print(f"decode step at kv_len {T}, B {B}: {step_s * 1e3:.3f} ms "
+          f"({B / step_s:.1f} tok/s); bound {step_bound:.4f} ms "
+          f"({cfg.n_layers} x {bound:.5f} ms of attention + {weights:,} bytes "
+          "of weights at 3.35 TB/s)")
+    print(f"-- where the time goes, lm decode step at kv_len {T}")
+    busy_us = where_the_time_goes(step, torch, n=5)
+    print(f"device busy {busy_us:.1f} us per step = "
+          f"{100 * busy_us / (step_s * 1e6):.1f}% of the unprofiled step")
+    del state
+    torch.cuda.empty_cache()
+    return a, B / step_s
+
+
+def attn_timing(name, ins, torch, cyc, n_iter=50):
+    """``decode_attn`` on ``ins``: the kernel (two timed runs), its plain
+    version and ``scaled_dot_product_attention`` by CUDA events, its launch
+    geometry and its bound (the K/V rows up to kv_len once, q and out, at
+    3.35 TB/s; the flops at the bf16 tensor-core peak)."""
+    from repro_torch.kernels.decode_attn import (
+        decode_attn,
+        decode_attn_plain,
+        plan,
+    )
+
+    q, k, v, kv_len = ins
+    B, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    tol = ATTN_TOL_FULL[str(q.dtype).removeprefix("torch.")]
+    err, ok = close(decode_attn(*ins), decode_attn_plain(*ins), *tol)
+    if not ok:
+        raise AssertionError(f"decode_attn != its plain version at {name}")
     k_ms = ms(lambda: decode_attn(*ins), n_iter, torch, cyc)
     p_ms = ms(lambda: decode_attn_plain(*ins), max(n_iter // 10, 3), torch,
               cyc)
     k_ms2 = ms(lambda: decode_attn(*ins), n_iter, torch, cyc)
     try:
         lib, backend = sdpa_library(*ins, torch)
-        lib_err, lib_ok = close(lib(), decode_attn(*ins), *ATTN_TOL[cfg.dtype])
-        print(f"scaled_dot_product_attention vs the kernel: max abs err "
-              f"{lib_err:.3g}")
+        lib_err, lib_ok = close(lib(), decode_attn(*ins),
+                                *ATTN_TOL[str(q.dtype).removeprefix("torch.")])
         if not lib_ok:
             raise AssertionError(f"scaled_dot_product_attention computes "
                                  f"another function (max abs err {lib_err})")
@@ -841,33 +938,42 @@ def lm_timing(cfg, model, seed, torch, n_iter=50):
     except (RuntimeError, TypeError) as e:   # torch without this SDPA form
         lib_ms, backend = None, f"refused: {e}"
     esize = q.element_size()
-    kv_rows = int(kv_len.sum())
-    nbytes = 2 * kv_rows * cfg.n_kv * cfg.hd * esize + 2 * q.numel() * esize \
-        + 4 * B
-    flops = 4 * kv_rows * cfg.n_heads * cfg.hd
+    kv_rows = int(kv_len.clamp(0, S).sum())
+    nbytes = 2 * kv_rows * Hkv * D * esize + 2 * q.numel() * esize + 4 * B
+    flops = 4 * kv_rows * Hq * D
     bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
-    weights = sum(p.numel() * p.element_size() for p in model.parameters())
-    step_bound = cfg.n_layers * bound + weights / HBM_BYTES_PER_S * 1e3
-    print(f"decode step at kv_len {T}, B {B}: {step_s * 1e3:.3f} ms "
-          f"({B / step_s:.1f} tok/s); bound {step_bound:.4f} ms "
-          f"({cfg.n_layers} x {bound:.5f} ms of attention + {weights:,} bytes "
-          "of weights at 3.35 TB/s)")
-    print(f"decode_attn: kernel {k_ms:.5f} ms and {k_ms2:.5f} ms (device time "
+    g = plan(B, Hq, Hkv, D, S, q.dtype)
+    best = min(k_ms, k_ms2)
+    print(f"decode_attn at {name} (B {B}, Hq {Hq}, Hkv {Hkv}, D {D}, S {S}, "
+          f"{q.dtype}): kernel {k_ms:.5f} ms and {k_ms2:.5f} ms (device time "
           f"per launch, two runs of {n_iter}), plain {p_ms:.5f} ms, library "
           f"{'null' if lib_ms is None else f'{lib_ms:.5f} ms'} "
           f"[scaled_dot_product_attention, backend {backend}], bound "
           f"{bound:.6f} ms ({nbytes:,} bytes at 3.35 TB/s; {flops:,} flops), "
-          f"max abs err {err:.3g}")
-    print(f"-- where the time goes, lm decode step at kv_len {T}")
-    busy_us = where_the_time_goes(step, torch, n=5)
-    print(f"device busy {busy_us:.1f} us per step = "
-          f"{100 * busy_us / (step_s * 1e6):.1f}% of the unprofiled step")
-    del state
-    torch.cuda.empty_cache()
-    return (dict(ms=min(k_ms, k_ms2), plain_ms=p_ms, bound_ms=bound,
-                 max_abs_err=err, matched=ok, library_ms=lib_ms,
-                 bytes=nbytes),
-            B / step_s)
+          f"gap {best / bound:.2f}x, {nbytes / best / 1e6:.0f} GB/s, max abs "
+          f"err {err:.3g}")
+    print(f"  geometry: {g.qc} query rows a block, {g.n_split} spans of "
+          f"{g.split_len} rows, tiles of {g.tile}, {g.blocks} blocks of 128 "
+          f"threads, {g.smem:,} bytes of dynamic shared memory a block, "
+          f"{g.resident} resident an SM by shared memory")
+    return dict(ms=best, plain_ms=p_ms, bound_ms=bound, max_abs_err=err,
+                matched=ok, library_ms=lib_ms, bytes=nbytes)
+
+
+def attn_shapes_timing(seed, torch, n_iter=50):
+    """``decode_attn`` at the two further full-width shapes, every row at
+    kv_len = S."""
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device).manual_seed(seed + 17)
+    cyc = sleep_cycles_per_ms(torch)
+    out = {}
+    for name, (B, Hq, Hkv, D, S) in ATTN_WIDE.items():
+        q, k, v, _ = attn_inputs(gen, B, Hq, Hkv, D, S, torch.bfloat16, device)
+        kv_len = torch.full((B,), S, dtype=torch.int32, device=device)
+        out[name] = attn_timing(name, (q, k, v, kv_len), torch, cyc, n_iter)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
 
 
 def bytes_touched(zoo, pb, prof, torch):
@@ -965,6 +1071,91 @@ def where_the_time_goes(step, torch, n=10):
     return busy / n
 
 
+NCU_METRICS = ("sm__warps_active.avg.pct_of_peak_sustained_active",
+               "dram__throughput.avg.pct_of_peak_sustained_elapsed")
+
+
+def kernel_resources(libs, seed):
+    """Registers, spills and static shared memory of each function of the
+    redesigned kernels, from ``nvcc -Xptxas -v``; then ``ncu``'s achieved
+    occupancy and DRAM throughput for one launch of each at its timed shape
+    (this script's ``--ncu-probe``), where that tool is on the machine."""
+    import os
+    import shutil
+    import signal
+
+    for name in ("decode_attn", "classify_fused"):
+        fn = None
+        for line in libs[name].log.splitlines():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif "Used" in line and fn:
+                print(f"{name} {fn}: {line.split(':', 1)[1].strip()}")
+    ncu = shutil.which("ncu")
+    if ncu is None:
+        print("ncu: not on this machine; occupancy and DRAM throughput not "
+              "measured")
+        return
+    cmd = [ncu, "--csv", "--metrics", ",".join(NCU_METRICS), "--kernel-name",
+           "regex:attn_bf16|classify_fused_kernel", sys.executable,
+           str(Path(__file__).resolve()), "--ncu-probe", "--seed", str(seed)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=240)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        print("ncu: timed out after 240 s; not measured")
+        return
+    rows = [line for line in out.splitlines()
+            if any(m in line for m in NCU_METRICS)]
+    if not rows:
+        tail = " | ".join(out.strip().splitlines()[-3:])
+        print(f"ncu: no metrics (exit {proc.returncode}): {tail[:400]}")
+        return
+    for line in rows:
+        cells = [c.strip('"') for c in line.split('","')]
+        print("ncu: " + ", ".join(c for c in (cells[4:5] + cells[-3:]) if c))
+
+
+def ncu_probe(seed):
+    """One launch of each redesigned kernel at its timed shape, for ncu:
+    ``decode_attn`` at internlm2-1.8b's width (B 16, kv_len 4096) and
+    ``classify_fused`` on random full-width tables at B 4096."""
+    import numpy as np
+    import torch
+    from repro_torch.core.plane import PlaneProfile
+    from repro_torch.kernels import tiling
+    from repro_torch.kernels.classify_fused import classify_fused
+    from repro_torch.kernels.decode_attn import decode_attn
+
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    B = LM_SERVE["batch"]
+    q, k, v, _ = attn_inputs(gen, B, 16, 8, 128, LM_CACHE, torch.bfloat16,
+                             device)
+    decode_attn(q, k, v, torch.full((B,), LM_CACHE, dtype=torch.int32,
+                                    device=device))
+    prof = PlaneProfile(**FULL)
+    rng = np.random.default_rng(seed)
+    tabs = random_tables(rng, prof, torch, device, empty_slot=2)
+    ops_ = tiling.prep_classify_fused(*(tabs[k] for k in (
+        "code_value", "code_mask", "fid", "f_lo", "f_hi", "set_bit", "valid",
+        "pred_codes", "pred_labels", "pred_valid", "weights", "lut", "bias")))
+
+    def ints(hi, shape):
+        return torch.from_numpy(rng.integers(0, hi, shape).astype(np.int32)
+                                ).to(device)
+    classify_fused(ints(2**12, (BATCH, prof.max_trees)),
+                   ints(prof.levels, (BATCH, prof.max_features)),
+                   ints(prof.max_versions, BATCH), tabs["layer_shift"], ops_,
+                   prof.max_classes)
+    torch.cuda.synchronize()
+    return 0
+
+
 LIBRARY_NONE = {
     "classify_fused": "no single PyTorch call computes walk, vote and SVM "
                       "sums",
@@ -1052,6 +1243,7 @@ def timing_phase(zoos, runtimes, pb, prof, torch, n_iter=50):
     from repro_torch.kernels.classify_fused import (
         classify_fused,
         classify_fused_plain,
+        packets_per_block,
     )
     from repro_torch.kernels.forest_vote import forest_vote, forest_vote_plain
     from repro_torch.kernels.svm_lookup import svm_lookup, svm_lookup_plain
@@ -1098,6 +1290,12 @@ def timing_phase(zoos, runtimes, pb, prof, torch, n_iter=50):
         raise AssertionError("the embedding_bag yardstick computes other sums")
     nbytes = bytes_touched(zoo, pb, prof, torch)
     cyc = sleep_cycles_per_ms(torch)
+    B, T, F = pb.batch, prof.max_trees, prof.max_features
+    pb_n = packets_per_block(T, F, B, L=L)
+    print(f"classify_fused geometry at B {B}: {pb_n} packets a block, "
+          f"{-(-B // pb_n)} blocks of 160 threads, "
+          f"{(pb_n * (F + T + 1 + L * T) + L) * 4} bytes of shared memory a "
+          "block")
     out = {}
     for name, (kernel, plain, per) in calls.items():
         err = max_abs_err(kernel(), plain())
@@ -1115,8 +1313,8 @@ def timing_phase(zoos, runtimes, pb, prof, torch, n_iter=50):
               f"{f' of {per} launches' if per > 1 else ''}), plain "
               f"{p_ms:.5f} ms, library "
               f"{'null' if lib_ms is None else f'{lib_ms:.5f} ms'}, bound "
-              f"{bound:.6f} ms ({nbytes[name]:.0f} bytes at 3.35 TB/s), max "
-              f"abs err {err}")
+              f"{bound:.6f} ms ({nbytes[name]:.0f} bytes at 3.35 TB/s), gap "
+              f"{min(k_ms, k_ms2) / bound:.1f}x, max abs err {err}")
         if lib_ms is None:
             print(f"  library_ms null: {LIBRARY_NONE[name]}")
         out[name] = dict(ms=min(k_ms, k_ms2), plain_ms=p_ms, bound_ms=bound,
@@ -1152,6 +1350,9 @@ def timing_phase(zoos, runtimes, pb, prof, torch, n_iter=50):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ncu-probe", action="store_true",
+                    help="only launch the redesigned kernels once each, "
+                         "for ncu (phase 9 runs this under ncu)")
     args = ap.parse_args(argv)
     import torch
 
@@ -1163,6 +1364,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    if args.ncu_probe:
+        return ncu_probe(args.seed)
     from repro_torch.core.plane import PlaneProfile
 
     t_start = time.perf_counter()
@@ -1172,7 +1375,7 @@ def main(argv=None) -> int:
           f"device {torch.cuda.get_device_name(0)}")
 
     phase("1 build")
-    build_phase()
+    libs = build_phase()
     phase("2 kernel vs twin, random full-width tables, V=4 with an empty slot")
     kernel_phase(prof, args.seed, device)
     phase("3 staged kernels vs their plain versions, the same tables")
@@ -1215,6 +1418,8 @@ def main(argv=None) -> int:
     phase(f"9 timing at B = {BATCH}; the decode step at kv_len {LM_CACHE}")
     t, rps = timing_phase(zoos, runtimes, pb, prof, torch)
     t["decode_attn"], step_tok_s = lm_timing(cfg, lm, args.seed, torch)
+    wide = attn_shapes_timing(args.seed, torch)
+    kernel_resources(libs, args.seed)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1231,7 +1436,11 @@ def main(argv=None) -> int:
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"paths": {"launches": path_launches,
                                 "requests_per_s": rps,
-                                "lm_decode": served}}))
+                                "lm_decode": served},
+                      "decode_attn_shapes": {
+                          k: {x: a[x] for x in ("ms", "plain_ms", "bound_ms",
+                                                "library_ms", "max_abs_err")}
+                          for k, a in wide.items()}}))
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/csrc/{name}.cu",

@@ -1,9 +1,11 @@
-// Device functions shared by the classify kernels: one walk row, one leaf
-// lookup, the weighted vote and one SVM hyperplane sum.  Each is the
-// per-(packet, tree) or per-(packet, hyperplane) step of the plain torch
-// version in src/repro_torch/kernels/ref.py, so the fused kernel and the
-// staged kernels (tree_walk, tcam_match, forest_vote, svm_lookup) compute
-// the same bits by construction.
+// Device functions shared by the staged classify kernels (tree_walk,
+// tcam_match, forest_vote, svm_lookup): one walk row, one leaf lookup, the
+// weighted vote and one SVM hyperplane sum.  Each is the per-(packet, tree)
+// or per-(packet, hyperplane) step of the plain torch version in
+// src/repro_torch/kernels/ref.py, so the staged kernels compute the same
+// bits by construction.  The fused kernel (classify_fused.cu) does the same
+// steps with lanes working together on one pair, held to the same plain
+// version by the tests.
 //
 // Walk records are the 16-byte entries of kernels/tiling.py:
 //   x  code value (uint32 bits)

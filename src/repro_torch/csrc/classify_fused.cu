@@ -14,38 +14,165 @@
 //   vote  leaf label by exact match of the final code among the sorted leaf
 //         codes of (v, t) (lower-bound binary search), then class scores
 //         summed in tree order in f32; argmax, ties to the smaller class.
-//   svm   bias[v, h] + sum_f lut[v, h, f, feat[b, f]] in int32 (mod 2^32);
+//   svm   bias[v, h] + sum_f lut[v, f, feat[b, f], h] in int32 (mod 2^32);
 //         a feature outside [0, levels) adds 0.
 //
-// What bounds it on this card: bytes.  The arithmetic is a few integer
-// compares per entry; the work is reading the entry records a walk visits
-// (16 B each), the touched leaf and LUT entries, and the per-packet I/O.
-// One version's tables at the paper's profile are about 0.5 MB of entries
-// and 0.74 MB of LUT, so a zoo of four versions stays resident in the 50 MB
-// L2 and the card's HBM sees each table once per classify.
+// What bounds it on this card: latency (chains of dependent steps), not
+// bytes.  The bytes a classify needs (the walk records the packets visit,
+// the leaves and LUT cells they touch, the per-packet I/O: ~3.5 MB at the
+// zoo's B 4096) take ~1 us at 3.35 TB/s, and a zoo's tables stay in the
+// 50 MB L2 (the walk's rows and the leaves mostly in L1).  The walk is a
+// chain: layer l + 1 needs layer l's code, and a row's first match needs
+// its records in order.
 //
 // What the design does about it:
-//   * a block takes PB packets and stages their feature rows in shared
-//     memory once; the walk, the vote and the SVM all read them there
-//     (the TPU kernel's one-hot MXU select becomes a direct index);
-//   * a thread per (packet, tree) walks with one 16-byte read-only load per
-//     entry and stops at the first hit, and at the row's last valid entry
-//     (`n_entries`), so sparse and empty rows cost nothing;
-//   * each packet indexes its own version's tables: no version grid and no
-//     masked merge;
-//   * a thread per (packet, hyperplane) accumulates the SVM sum in int32
-//     with a direct gather, with no f32 one-hot contraction and no rounding.
-//
-// The per-row, per-leaf, vote and per-hyperplane steps live in
-// acorn_device.cuh, shared with the staged kernels.
+//   * GL = 8 lanes walk one (packet, tree), 4 pairs a warp: per layer they
+//     load GL records of the row at once, test them in parallel and take
+//     the first match with __ballot_sync (one ballot for the hits, one for
+//     their set bits), so a layer costs one round of loads, not one per
+//     record; the next layer's first records are loaded before this layer
+//     is compared (a row's place does not depend on the code);
+//   * each packet's feature row, its version's row lengths and the
+//     layers' bits are staged in shared memory once, so an empty layer
+//     costs a shared-memory read and a ballot;
+//   * a block is 4 walking warps and one SVM warp: the SVM sums do not
+//     need the walk, so that warp gathers the LUT while the others walk.
+//     The LUT is read from an install-time copy with the hyperplanes
+//     innermost (tiling.py, `lut_fh`), so a feature's H products are one
+//     contiguous gather, 8 of them in flight a lane, past L1 (__ldcg) so
+//     the walk's rows stay there; lanes over (feature slice, hyperplane),
+//     slices added with shuffles (int32 adds wrap: any order, same bits);
+//   * the leaf lookup is a GL-ary lower-bound search (3 rounds of one
+//     load a lane at 256 leaves, where a binary search chains 8 loads); it
+//     finds the same position as acorn::leaf_label on the sorted leaves;
+//   * the vote is a warp per packet, a lane per class, each score summed
+//     in tree order t = 0..T-1 as the twin sums it with the weights passed
+//     by shuffle, then a shuffle argmax (ties to the smaller class);
+//   * PB packets a block (2 at the zoo's 8 trees), chosen by the wrapper
+//     (kernels/classify_fused.py, `packets_per_block`) so every walking
+//     lane has a pair and the grid holds at least two blocks an SM.
+// Measured on an H100 (PERF.md): 0.034 ms at the zoo's B 4096, down from
+// 0.075.  Per-block timestamps (tools/classify_fused_phases.py) show a
+// block living ~11 us with ~5.5 resident per SM: the deepest tree's walk
+// at ~0.44 us a layer, and staging the row lengths one L2 round trip.
+// Rows are shared through L1 rather than staged in shared memory: one
+// version's layer is up to 16 KB and a block's packets may span every
+// version, so double-buffered staging would hold ~128 KB a block and one
+// block an SM.
 
 #include <cuda_runtime.h>
-
-#include "acorn_device.cuh"
+#include <math.h>
 
 namespace {
 
-__global__ void __launch_bounds__(256) classify_fused_kernel(
+constexpr int WALK_WARPS = 4;     // warps that walk (packet, tree) pairs
+constexpr int WARPS = WALK_WARPS + 1;   // and one that sums the SVM LUTs
+constexpr int THREADS = 32 * WARPS;
+constexpr int GL = 8;             // lanes that walk one (packet, tree)
+constexpr int GPW = 32 / GL;      // (packet, tree) walks a warp
+constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned GMASK = GL == 32 ? FULL : (1u << GL) - 1;
+constexpr int SVM_BATCH = 8;      // LUT gathers a lane has in flight
+
+__device__ __forceinline__ int4 no_match() { return make_int4(0, -1, 1, 0); }
+
+// Does record `r` match `code` and the feature row `feat`?  Both tests
+// are computed without a branch, so the feature read waits on the record
+// only, not on the code.
+__device__ __forceinline__ bool matches(const int4& r, unsigned code,
+                                        const int* feat) {
+  const int x = feat[(short)(r.z & 0xFFFF)];
+  const bool in_range = x >= (r.z >> 16) && x <= (int)(short)(r.w & 0xFFFF);
+  return in_range && (code & (unsigned)r.y) == (unsigned)r.x;
+}
+
+// The walk of GPW (packet, tree) pairs by one warp, GL lanes each: every
+// layer of the pairs' rows, in order, each layer's first match found GL
+// records at a time with one ballot (and a second for the set bits).  The
+// first GL records of the next layer a pair needs are loaded before this
+// layer is compared, since a row's place does not depend on the code.
+// `rows` is the pair's row at layer 0 (layer l at l * T rows on), `sn` its
+// row lengths in shared memory (stride T; zeros off the zoo), `s_bit` each
+// layer's bit (0 for a shift outside [0, 32)).  Returns the pair's final
+// code (the same in the group's lanes).
+__device__ __forceinline__ unsigned walk_pair(unsigned code, const int* feat,
+                                              const int4* rows, const int* sn,
+                                              const unsigned* s_bit, int L,
+                                              int T, int E, int glane,
+                                              int gbase) {
+  for (int l0 = 0; l0 < L; l0 += GL) {
+    // a lane per layer of this chunk: which layers any pair of the warp has
+    const int l = l0 + glane;
+    const unsigned has = __ballot_sync(FULL, l < L && sn[l * T] > 0);
+    unsigned todo = 0;
+#pragma unroll
+    for (int g = 0; g < GPW; ++g) todo |= (has >> (g * GL)) & GMASK;
+    if (!todo) continue;
+    int j = __ffs(todo) - 1;
+    int n = sn[(l0 + j) * T];
+    const int4* row = rows + (l0 + j) * T * E;
+    int4 cur = glane < n ? __ldg(row + glane) : no_match();
+    while (true) {
+      todo &= todo - 1;
+      // the next layer's first records, before this layer's compares
+      const int jn = __ffs(todo) - 1;
+      const int nn = todo ? sn[(l0 + jn) * T] : 0;
+      const int4* row_n = rows + (l0 + jn) * T * E;
+      const int4 nxt = glane < nn ? __ldg(row_n + glane) : no_match();
+      bool hit = matches(cur, code, feat);
+      unsigned mine = (__ballot_sync(FULL, hit) >> gbase) & GMASK;
+      unsigned set =
+          (__ballot_sync(FULL, hit && (cur.w & 0x10000)) >> gbase) & GMASK;
+      // rows longer than GL: further rounds while a pair has no match
+      if (__any_sync(FULL, !mine && n > GL)) {
+        for (int e0 = GL; __any_sync(FULL, !mine && e0 < n); e0 += GL) {
+          const int4 r = !mine && e0 + glane < n ? __ldg(row + e0 + glane)
+                                                 : no_match();
+          hit = !mine && matches(r, code, feat);
+          const unsigned more = (__ballot_sync(FULL, hit) >> gbase) & GMASK;
+          const unsigned more_set =
+              (__ballot_sync(FULL, hit && (r.w & 0x10000)) >> gbase) & GMASK;
+          if (!mine) {
+            mine = more;
+            set = more_set;
+          }
+        }
+      }
+      // the first match's set bit: the lowest bit of `mine`
+      if (set & mine & (0u - mine)) code |= s_bit[l0 + j];
+      if (!todo) break;
+      j = jn;
+      n = nn;
+      row = row_n;
+      cur = nxt;
+    }
+  }
+  return code;
+}
+
+// acorn::leaf_label for one (packet, tree) by its GL lanes: the same lower
+// bound of `code` over the sorted leaf codes, found by a GL-ary search
+// (ceil(log_GL P) rounds of one load a lane, 3 at P 256) in place of a
+// chain of log2 P loads.
+__device__ __forceinline__ int leaf_label_group(const unsigned* pc,
+                                                const int* labels, int P,
+                                                unsigned code, int glane,
+                                                int gbase) {
+  // invariant: pc[i] < code for i < lo, and hi == P or pc[hi] >= code
+  int lo = 0, hi = P;
+  for (int step = (P + GL - 1) / GL;; step = (step + GL - 1) / GL) {
+    const int idx = lo + (glane + 1) * step - 1;
+    const bool below = idx < hi && __ldg(pc + idx) < code;
+    const int count = __popc((__ballot_sync(FULL, below) >> gbase) & GMASK);
+    lo += count * step;
+    hi = min(hi, lo + step - 1);
+    if (step == 1) break;
+  }
+  const int pos = min(lo, P - 1);
+  return __ldg(pc + pos) == code ? __ldg(labels + pos) : 0;
+}
+
+__global__ void __launch_bounds__(THREADS) classify_fused_kernel(
     const int* __restrict__ codes,        // [B, T] uint32 bits
     const int* __restrict__ feats,        // [B, F]
     const int* __restrict__ vid,          // [B]
@@ -55,7 +182,7 @@ __global__ void __launch_bounds__(256) classify_fused_kernel(
     const unsigned* __restrict__ pred_codes,  // [V, T, P] sorted
     const int* __restrict__ pred_labels,  // [V, T, P]
     const float* __restrict__ weights,    // [V, T]
-    const int* __restrict__ lut,          // [V, H, F, levels]
+    const int* __restrict__ lut_fh,       // [V, F, levels, H]
     const int* __restrict__ bias,         // [V, H]
     int* __restrict__ out_codes,          // [B, T]
     int* __restrict__ out_label,          // [B]
@@ -63,81 +190,158 @@ __global__ void __launch_bounds__(256) classify_fused_kernel(
     int B, int F, int V, int L, int T, int E, int P, int H, int levels,
     int n_classes, int PB) {
   extern __shared__ int smem[];
-  int* s_feat = smem;            // [PB, F]
-  int* s_label = smem + PB * F;  // [PB, T] per-tree leaf labels
+  int* s_feat = smem;                // [PB, F]
+  int* s_label = s_feat + PB * F;    // [PB, T] per-tree leaf labels
+  int* s_vid = s_label + PB * T;     // [PB]
+  int* s_n = s_vid + PB;             // [PB, L, T] row lengths, 0 off the zoo
+  unsigned* s_bit = (unsigned*)(s_n + PB * L * T);  // [L] each layer's bit
   const int b0 = blockIdx.x * PB;
   const int n_here = min(PB, B - b0);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int glane = lane % GL, gbase = lane - glane;
 
-  for (int i = threadIdx.x; i < n_here * F; i += blockDim.x)
+  for (int i = threadIdx.x; i < n_here * F; i += THREADS)
     s_feat[i] = feats[(size_t)b0 * F + i];
+  for (int i = threadIdx.x; i < n_here; i += THREADS) s_vid[i] = vid[b0 + i];
+  for (int i = threadIdx.x; i < n_here * L * T; i += THREADS) {
+    const int v = vid[b0 + i / (L * T)];
+    s_n[i] = v >= 0 && v < V
+        ? __ldg(n_entries + (size_t)v * L * T + i % (L * T)) : 0;
+  }
+  for (int i = threadIdx.x; i < L; i += THREADS) {
+    const int sh = __ldg(layer_shift + i);
+    s_bit[i] = sh >= 0 && sh < 32 ? 1u << sh : 0u;
+  }
   __syncthreads();
 
-  // ---- walk + leaf lookup: one thread per (packet, tree) ----
-  if (threadIdx.x < n_here * T) {
-    const int p = threadIdx.x / T, t = threadIdx.x % T;
-    const int b = b0 + p;
-    unsigned code = (unsigned)codes[(size_t)b * T + t];
-    const int v = vid[b];
-    int label = 0;
-    if (v >= 0 && v < V) {
-      const int* f = s_feat + p * F;
-      for (int l = 0; l < L; ++l) {
-        const size_t row = ((size_t)v * L + l) * T + t;
-        code = acorn::walk_row(code, f, entries + row * E,
-                               __ldg(n_entries + row),
-                               __ldg(layer_shift + l));
+  // ---- svm sums, beside the walk: the last warp, packet by packet, lanes
+  // over (slice of the features, hyperplane), so a feature's H products are
+  // one contiguous gather; the
+  // slices' sums added with shuffles (int32 adds wrap: any order gives the
+  // same bits).  The gathers skip L1 (__ldcg), which keeps the walk's rows
+  // and the leaves there ----
+  const int hp = H > 16 ? 32 : H > 8 ? 16 : H > 4 ? 8 : H > 2 ? 4
+                                                    : H > 1 ? 2 : 1;
+  const int slices = 32 / hp;
+  for (int p = 0; warp == WALK_WARPS && p < n_here; ++p) {
+    const int v = s_vid[p];
+    const bool in = v >= 0 && v < V;
+    const int* f = s_feat + p * F;
+    for (int h0 = 0; h0 < H; h0 += hp) {
+      const int h = h0 + lane % hp, sl = lane / hp;
+      unsigned acc = 0;
+      if (in && h < H) {
+        const int* lut_h = lut_fh + (size_t)v * F * levels * H + h;
+        // SVM_BATCH gathers issued before any is added: each load reads a
+        // clamped, valid cell and a mask drops what the twin adds as 0
+        for (int j0 = sl; j0 < F; j0 += SVM_BATCH * slices) {
+          unsigned got[SVM_BATCH];
+          bool use[SVM_BATCH];
+#pragma unroll
+          for (int k = 0; k < SVM_BATCH; ++k) {
+            const int j = j0 + k * slices;
+            const int x = j < F ? f[j] : -1;
+            use[k] = x >= 0 && x < levels;
+            got[k] = (unsigned)__ldcg(
+                lut_h + (min(j, F - 1) * levels + min(max(x, 0), levels - 1)) *
+                            H);
+          }
+#pragma unroll
+          for (int k = 0; k < SVM_BATCH; ++k) acc += use[k] ? got[k] : 0u;
+        }
       }
-      const size_t leaf = ((size_t)v * T + t) * P;
-      label = acorn::leaf_label(pred_codes + leaf, pred_labels + leaf, P,
-                                code);
+      for (int off = hp; off < 32; off <<= 1)
+        acc += __shfl_xor_sync(FULL, acc, off);
+      if (sl == 0 && h < H)
+        out_sums[(size_t)(b0 + p) * H + h] =
+            in ? (int)(acc + (unsigned)__ldg(bias + (size_t)v * H + h)) : 0;
     }
-    out_codes[(size_t)b * T + t] = (int)code;
-    s_label[p * T + t] = label;
   }
+
+  // ---- walk + leaf lookup: GL lanes per (packet, tree) ----
+  for (int base = warp * GPW; warp < WALK_WARPS && base < n_here * T;
+       base += WALK_WARPS * GPW) {
+    const int pt = base + gbase / GL;
+    const bool pair = pt < n_here * T;
+    const int p = pair ? pt / T : 0, t = pair ? pt % T : 0;
+    const int b = b0 + p;
+    unsigned code = pair ? (unsigned)codes[(size_t)b * T + t] : 0u;
+    const int v = pair ? s_vid[p] : -1;
+    const bool in = v >= 0 && v < V;
+    code = walk_pair(code, s_feat + p * F,
+                     entries + ((size_t)(in ? v : 0) * L * T + t) * E,
+                     s_n + p * L * T + t, s_bit, L, T, E, glane, gbase);
+    const size_t leaf = ((size_t)(in ? v : 0) * T + t) * P;
+    const int label = leaf_label_group(pred_codes + leaf, pred_labels + leaf,
+                                       P, code, glane, gbase);
+    if (pair && glane == 0) {
+      out_codes[(size_t)b * T + t] = (int)code;
+      s_label[p * T + t] = in ? label : 0;
+    }
+  }
+
   __syncthreads();
 
-  // ---- vote: one thread per packet ----
-  if (threadIdx.x < n_here) {
-    const int b = b0 + threadIdx.x;
-    const int v = vid[b];
-    out_label[b] = (v >= 0 && v < V)
-        ? acorn::vote(s_label + threadIdx.x * T, weights + (size_t)v * T, T,
-                      n_classes)
-        : 0;
-  }
-
-  // ---- svm sums: one thread per (packet, hyperplane) ----
-  for (int i = threadIdx.x; i < n_here * H; i += blockDim.x) {
-    const int p = i / H, h = i % H;
-    const int b = b0 + p;
-    const int v = vid[b];
-    out_sums[(size_t)b * H + h] = (v >= 0 && v < V)
-        ? acorn::svm_sum(s_feat + p * F, lut + ((size_t)v * H + h) * F * levels,
-                         F, levels, __ldg(bias + (size_t)v * H + h))
-        : 0;
+  // ---- vote: a warp per packet, a lane per class, each score summed in
+  // tree order as the twin sums it, the trees' weights passed by shuffle;
+  // then a shuffle argmax (the higher score, ties to the smaller class) ----
+  for (int p = warp; p < n_here; p += WARPS) {
+    const int v = s_vid[p];
+    const bool in = v >= 0 && v < V;
+    float best = -INFINITY;
+    int best_c = 0;
+    const int* lab = s_label + p * T;
+    const float* w = weights + (size_t)(in ? v : 0) * T;
+    for (int c0 = 0; c0 < n_classes; c0 += 32) {
+      const int c = c0 + lane;
+      float score = 0.f;
+      for (int t0 = 0; t0 < T; t0 += 32) {
+        const float wl = t0 + lane < T ? __ldg(w + t0 + lane) : 0.f;
+        for (int t = 0; t < min(32, T - t0); ++t) {
+          const float wt = __shfl_sync(FULL, wl, t);
+          if (lab[t0 + t] == c) score += wt;
+        }
+      }
+      if (c < n_classes && score > best) {
+        best = score;
+        best_c = c;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ob = __shfl_xor_sync(FULL, best, off);
+      const int oc = __shfl_xor_sync(FULL, best_c, off);
+      if (ob > best || (ob == best && oc < best_c)) {
+        best = ob;
+        best_c = oc;
+      }
+    }
+    if (lane == 0) out_label[b0 + p] = in ? best_c : 0;
   }
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes.  Launches on `stream` and returns
-// cudaGetLastError() (0 = launched).  The caller sizes PB so that the block
-// (PB * T threads, at most 256) and its shared memory (PB * (F + T) ints,
-// at most 48 KB) fit.
+// cudaGetLastError() (0 = launched).  The caller sizes PB (packets a block,
+// kernels/classify_fused.py `packets_per_block`); the block's shared memory,
+// PB * (F + T + 1 + L * T) + L ints, must stay within 48 KB.
 extern "C" int acorn_classify_fused(
     const void* codes, const void* feats, const void* vid,
     const void* layer_shift, const void* entries, const void* n_entries,
     const void* pred_codes, const void* pred_labels, const void* weights,
-    const void* lut, const void* bias, void* out_codes, void* out_label,
+    const void* lut_fh, const void* bias, void* out_codes, void* out_label,
     void* out_sums, int B, int F, int V, int L, int T, int E, int P, int H,
     int levels, int n_classes, int PB, void* stream) {
+  const size_t smem =
+      ((size_t)PB * (F + T + 1 + (size_t)L * T) + L) * sizeof(int);
+  if (PB < 1 || smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const int grid = (B + PB - 1) / PB;
-  const size_t smem = (size_t)PB * (F + T) * sizeof(int);
-  classify_fused_kernel<<<grid, 256, smem, (cudaStream_t)stream>>>(
+  classify_fused_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const int*)codes, (const int*)feats, (const int*)vid,
       (const int*)layer_shift, (const int4*)entries, (const int*)n_entries,
       (const unsigned*)pred_codes, (const int*)pred_labels,
-      (const float*)weights, (const int*)lut, (const int*)bias,
+      (const float*)weights, (const int*)lut_fh, (const int*)bias,
       (int*)out_codes, (int*)out_label, (int*)out_sums, B, F, V, L, T, E, P,
       H, levels, n_classes, PB);
   return (int)cudaGetLastError();

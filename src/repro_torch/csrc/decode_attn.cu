@@ -12,21 +12,36 @@
 // does.
 //
 // What bounds it on this card: bytes.  Each K and V row up to kv_len is read
-// once (2 * kv_len * Hkv * D elements per sequence, 268 MB for a step of
-// internlm2-1.8b at B 16 and kv_len 4096) against 4 * G flops per element,
-// far below the H100's ~295 flops per byte of balance.
+// once (268 MB for a step of internlm2-1.8b at B 16 and kv_len 4096)
+// against 4 * G flops per element: below the H100's ~295 flops per byte
+// even at granite-20b's G = 48 once the products run on tensor cores.
 //
-// What the design does about it: one block per (sequence, KV head, chunk of
-// up to 8 of the G query rows), so each KV row is read by one block only
-// (twice or more only when G > 8).  A warp reads a row with 8- or 16-byte
-// loads per lane (D / 32 elements each, or half a warp per row when
-// D = 16), keeps 4 rows of K and V in flight, and runs an online softmax
-// (running max, denominator and float32 accumulator per query row) in
-// registers; rows past kv_len are never read and the cache is never padded.
-// The block's row groups merge their partial softmaxes in shared memory at
-// the end.  Not done here (later work): splitting S across blocks when
-// B * Hkv is below the SM count (flash-decoding's second pass), and
-// tensor-core mma for large G.
+// What the design does about it:
+//   * split-KV in one launch (flash-decoding).  A group is (sequence, KV
+//     head, chunk of query rows); the cache range [0, S) is cut into
+//     `n_split` spans of `split_len` rows, one block per (group, span), so
+//     the grid fills the card even at B * Hkv = 32.  The wrapper chooses the
+//     split (kernels/decode_attn.py, `plan`).  Each block writes its
+//     partial softmax (m, l, acc) in f32 to a workspace; the last block of
+//     a group to finish (an atomic counter behind __threadfence) merges the
+//     partials in span order, writes the output and resets the counter, so
+//     no memset and no second kernel run.  A span past kv_len contributes
+//     m = -inf, l = 0.
+//   * K/V tiles staged in shared memory by cp.async in a ring of 3 stages
+//     (up to ~70 KB in flight per block, two blocks per SM at D 128), rows
+//     past the span zero-filled, so the loads run ahead of the math.
+//   * bf16: tensor cores (mma.sync m16n8k16, f32 accumulate).  A block
+//     takes 16 query rows (a KV head's G rows padded with zeros; G above 16
+//     in chunks of 16, whose blocks read the same K/V tiles, mostly from
+//     L2), held by each warp as A fragments; the 4 warps split a tile's
+//     keys, 16 at a time: S = Q K^T, the online softmax on the accumulator
+//     fragments, then P V with P split into bf16 hi + lo parts (P = hi + lo
+//     to ~2^-17), so the product keeps f32-like precision: bf16 P alone
+//     misses one bf16 ulp of the output on short rows.
+//   * f32: CUDA cores, a warp (half a warp at D 16) per key row, lanes over
+//     D, up to 8 query rows a block, online softmax in registers.
+// The warps' partials, then the spans', merge in a fixed order, so a run is
+// deterministic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -34,14 +49,43 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
-constexpr int UNROLL = 4;   // KV rows in flight per row group
+constexpr int STAGES = 3;      // cp.async ring depth
+constexpr int PAD = 16;        // bytes after each staged row: no bank conflicts
+constexpr int TILE_BF16 = 64;  // keys per stage
+constexpr int TILE_F32 = 32;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool fill) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  const int n = fill ? 16 : 0;   // 0: write 16 zero bytes, read nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
 }
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&p);
+}
+
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
   return x;
@@ -51,59 +95,360 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+// Where a block works: group (b, KV head h, query chunk c), its span
+// [lo, hi) of cache rows (hi <= kv_len), and its query rows.
+struct Work {
+  int b, h, c, split, lo, hi, g0, rows;
+};
+
+__device__ __forceinline__ Work locate(const int* kv_len, int S, int Hkv,
+                                       int G, int n_chunks, int qc,
+                                       int split_len) {
+  Work w;
+  const int group = blockIdx.x;
+  w.c = group % n_chunks;
+  w.h = (group / n_chunks) % Hkv;
+  w.b = group / (n_chunks * Hkv);
+  w.split = blockIdx.y;
+  const int n = min(max(kv_len[w.b], 0), S);
+  w.lo = w.split * split_len;
+  w.hi = min(w.lo + split_len, n);
+  w.g0 = w.c * qc;
+  w.rows = min(qc, G - w.g0);
+  return w;
+}
+
+// Stage rows [base, base + TILE) of K and V (KV head h of sequence b) into
+// one ring slot: [TILE][D] of K then [TILE][D] of V, each row followed by
+// PAD bytes; rows at or past `hi` are zero-filled.
+template <typename T, int D, int TILE>
+__device__ __forceinline__ void load_tile(char* slot, const T* k, const T* v,
+                                          const Work& w, int S, int Hkv,
+                                          int base) {
+  constexpr int ROW = D * sizeof(T);
+  constexpr int CHUNKS = ROW / 16;
+  constexpr int STRIDE = ROW + PAD;
+  for (int i = threadIdx.x; i < 2 * TILE * CHUNKS; i += THREADS) {
+    const int which = i / (TILE * CHUNKS);
+    const int r = (i / CHUNKS) % TILE, ch = i % CHUNKS;
+    const int s = base + r;
+    const bool in = s < w.hi;
+    const T* src = (which ? v : k) +
+                   (((size_t)w.b * S + (in ? s : 0)) * Hkv + w.h) * D;
+    cp_async16(slot + (which * TILE + r) * STRIDE + ch * 16,
+               reinterpret_cast<const char*>(src) + ch * 16, in);
+  }
+}
+
+// The block's partials -> its span's partial, and the output once every
+// span of the group is in.  `pm`, `pl` [np][qc] and `pacc` [np][qc][D] (f32,
+// shared memory) hold the warps' partials for the block's query rows; they
+// merge in order k = 0..np-1.  With one span the block writes the output;
+// else it writes its span's partial (m, l, acc) to `ws`, and the last block
+// of the group to arrive merges the spans in order 0..n_split-1, writes the
+// output and resets the group's counter for the next launch.  `scratch`
+// (shared memory, 2 * n_split * rows + rows floats) may alias the partials.
+template <typename T, int D>
+__device__ void finish(const float* pm, const float* pl, const float* pacc,
+                       int np, int qc, const Work& w, int Hq, int G,
+                       int n_split, int ws_rows, float* ws, int* counters,
+                       T* out, int* s_last, float* scratch) {
+  const int group = blockIdx.x;
+  T* o = out + ((size_t)w.b * Hq + (size_t)w.h * G + w.g0) * D;
+  const size_t span = (size_t)ws_rows * (D + 4);   // acc, m, l, 16B rows
+  float* mine = ws + ((size_t)group * n_split + w.split) * span;
+  for (int i = threadIdx.x; i < w.rows * D; i += THREADS) {
+    const int r = i / D, d = i % D;
+    float M = -INFINITY;
+    for (int k = 0; k < np; ++k) M = fmaxf(M, pm[k * qc + r]);
+    float l = 0.f, a = 0.f;
+    if (M != -INFINITY) {
+      for (int k = 0; k < np; ++k) {
+        const float mk = pm[k * qc + r];
+        const float e = mk == -INFINITY ? 0.f : expf(mk - M);
+        l += pl[k * qc + r] * e;
+        a += pacc[((size_t)k * qc + r) * D + d] * e;
+      }
+    }
+    if (n_split == 1) {
+      o[(size_t)r * D + d] = from_float<T>(l > 0.f ? a / l : 0.f);
+    } else {
+      if (d == 0) {
+        mine[(size_t)ws_rows * D + r] = M;
+        mine[(size_t)ws_rows * (D + 1) + r] = l;
+      }
+      mine[(size_t)r * D + d] = a;
+    }
+  }
+  if (n_split == 1) return;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    *s_last = atomicAdd(counters + group, 1) == n_split - 1;
+  __syncthreads();
+  if (!*s_last) return;
+  __threadfence();
+  // The spans' (m, l) per row into shared memory (the partials above are
+  // spent), a warp per row with lanes over spans; then per row in span
+  // order each span's weight exp(m_s - M) and the denominator; then the
+  // outputs, each a sum over spans in order whose loads do not wait on one
+  // another.
+  const float* all = ws + (size_t)group * n_split * span;
+  float* s_w = scratch;                   // [n_split][rows]: m, then weight
+  float* s_l = scratch + n_split * w.rows;  // [n_split][rows]
+  float* s_den = s_l + n_split * w.rows;    // [rows]
+  const int lane = threadIdx.x % 32;
+  for (int r = threadIdx.x / 32; r < w.rows; r += WARPS) {
+    float M = -INFINITY;
+    for (int s = lane; s < n_split; s += 32) {
+      const float* ps = all + s * span + (size_t)ws_rows * D;
+      const float ms = __ldcg(ps + r);
+      s_w[s * w.rows + r] = ms;
+      s_l[s * w.rows + r] = __ldcg(ps + ws_rows + r);
+      M = fmaxf(M, ms);
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
+    __syncwarp();
+    if (lane == 0) {
+      float l = 0.f;
+      for (int s = 0; s < n_split; ++s) {
+        const float ms = s_w[s * w.rows + r];
+        const float e = ms == -INFINITY ? 0.f : expf(ms - M);
+        s_w[s * w.rows + r] = e;
+        l += s_l[s * w.rows + r] * e;
+      }
+      s_den[r] = l;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < w.rows * (D / 4); i += THREADS) {
+    const int r = i / (D / 4), d = i % (D / 4) * 4;
+    const float* p = all + (size_t)r * D + d;
+    float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int s = 0; s < n_split; ++s) {
+      const float e = s_w[s * w.rows + r];
+      const float4 x = __ldcg(reinterpret_cast<const float4*>(p + s * span));
+      a[0] += e * x.x;
+      a[1] += e * x.y;
+      a[2] += e * x.z;
+      a[3] += e * x.w;
+    }
+    const float l = s_den[r];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      o[(size_t)r * D + d + c] = from_float<T>(l > 0.f ? a[c] / l : 0.f);
+  }
+  if (threadIdx.x == 0) counters[group] = 0;
+}
+
+// bf16 on tensor cores: every warp holds the block's 16 query rows; warp kg
+// takes the 16-key chunks kg, kg + WARPS, ... of every tile.
+template <int D>
+__global__ void __launch_bounds__(THREADS) attn_bf16(
+    const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
+    const __nv_bfloat16* __restrict__ k,  // [B, S, Hkv, D]
+    const __nv_bfloat16* __restrict__ v,  // [B, S, Hkv, D]
+    const int* __restrict__ kv_len,       // [B]
+    __nv_bfloat16* __restrict__ out,      // [B, Hq, D]
+    float* __restrict__ ws, int* __restrict__ counters, int S, int Hq,
+    int Hkv, int n_chunks, int split_len, int n_split, int ws_rows,
+    float scale) {
+  constexpr int WK = WARPS, QC = 16, TILE = TILE_BF16;
+  constexpr int STRIDE = D * 2 + PAD, SLOT = 2 * TILE * STRIDE;
+  extern __shared__ __align__(16) char smem[];
+  __shared__ int s_last;
+  const int G = Hq / Hkv;
+  const Work w = locate(kv_len, S, Hkv, G, n_chunks, QC, split_len);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int kg = warp, g = lane / 4, t = lane % 4;
+  const int r0 = g, r1 = g + 8;
+
+  // A fragments of the warp's 16 query rows (rows past G are zeros)
+  unsigned qa[D / 16][4];
+  const __nv_bfloat16* qb = q + ((size_t)w.b * Hq + (size_t)w.h * G + w.g0) * D;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int col = kk * 16 + half * 8 + 2 * t;
+      qa[kk][2 * half] =
+          r0 < w.rows ? *reinterpret_cast<const unsigned*>(qb + r0 * D + col) : 0u;
+      qa[kk][2 * half + 1] =
+          r1 < w.rows ? *reinterpret_cast<const unsigned*>(qb + r1 * D + col) : 0u;
+    }
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  const int n_tiles = w.hi > w.lo ? (w.hi - w.lo + TILE - 1) / TILE : 0;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_tiles)
+      load_tile<__nv_bfloat16, D, TILE>(smem + s * SLOT, k, v, w, S, Hkv,
+                                        w.lo + s * TILE);
+    cp_commit();
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_wait<STAGES - 2>();
+    __syncthreads();   // tile `it` landed; slot (it - 1) % STAGES is free
+    const int nx = it + STAGES - 1;
+    if (nx < n_tiles)
+      load_tile<__nv_bfloat16, D, TILE>(smem + (nx % STAGES) * SLOT, k, v, w,
+                                        S, Hkv, w.lo + nx * TILE);
+    cp_commit();
+    const char* ks = smem + (it % STAGES) * SLOT;
+    const char* vs = ks + TILE * STRIDE;
+    const int base = w.lo + it * TILE;
+    for (int ch = kg; ch < TILE / 16; ch += WK) {
+      const int key0 = ch * 16;
+      // S = Q K^T for keys key0..key0+15: two n8 tiles
+      float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const char* row = ks + (key0 + 8 * j + g) * STRIDE + (kk * 16 + 2 * t) * 2;
+          mma_bf16(s[j], qa[kk], *reinterpret_cast<const unsigned*>(row),
+                   *reinterpret_cast<const unsigned*>(row + 16));
+        }
+      }
+      // online softmax; s[j][e] is row g (e < 2) or g + 8, key 8j + 2t + e % 2
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = base + key0 + 8 * j + 2 * t + (e & 1);
+          const float x = key < w.hi ? s[j][e] * scale : -INFINITY;
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+        mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+        alpha[hr] = m[hr] == -INFINITY ? 0.f : expf(m[hr] - mx[hr]);
+        m[hr] = mx[hr];
+        l[hr] *= alpha[hr];
+      }
+      unsigned hi[4], lo[4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int pr = 0; pr < 2; ++pr) {   // pr: row g or g + 8
+          float p[2], ph[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float x = s[j][2 * pr + e];
+            p[e] = x == -INFINITY ? 0.f : expf(x - m[pr]);
+            l[pr] += p[e];
+            ph[e] = __bfloat162float(__float2bfloat16_rn(p[e]));
+          }
+          hi[2 * j + pr] = pack_bf16(ph[0], ph[1]);
+          lo[2 * j + pr] = pack_bf16(p[0] - ph[0], p[1] - ph[1]);
+        }
+      // acc = acc * alpha + P V over d tiles of 8
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt) {
+        acc[nt][0] *= alpha[0];
+        acc[nt][1] *= alpha[0];
+        acc[nt][2] *= alpha[1];
+        acc[nt][3] *= alpha[1];
+        const char* col = vs + (nt * 8 + g) * 2;
+        const unsigned short* u0 = reinterpret_cast<const unsigned short*>(
+            col + (key0 + 2 * t) * STRIDE);
+        const unsigned short* u1 = reinterpret_cast<const unsigned short*>(
+            col + (key0 + 2 * t + 1) * STRIDE);
+        const unsigned short* u2 = reinterpret_cast<const unsigned short*>(
+            col + (key0 + 2 * t + 8) * STRIDE);
+        const unsigned short* u3 = reinterpret_cast<const unsigned short*>(
+            col + (key0 + 2 * t + 9) * STRIDE);
+        const unsigned b0 = (unsigned)*u0 | ((unsigned)*u1 << 16);
+        const unsigned b1 = (unsigned)*u2 | ((unsigned)*u3 << 16);
+        mma_bf16(acc[nt], hi, b0, b1);
+        mma_bf16(acc[nt], lo, b0, b1);
+      }
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();   // the ring's memory now holds the warps' partials
+
+  float* pm = reinterpret_cast<float*>(smem);
+  float* pl = pm + WK * QC;
+  float* pacc = pl + WK * QC;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+  }
+  {
+    const int i0 = kg * QC + r0, i1 = kg * QC + r1;
+    if (t == 0) {
+      pm[i0] = m[0];
+      pl[i0] = l[0];
+      pm[i1] = m[1];
+      pl[i1] = l[1];
+    }
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      const int d = nt * 8 + 2 * t;
+      pacc[(size_t)i0 * D + d] = acc[nt][0];
+      pacc[(size_t)i0 * D + d + 1] = acc[nt][1];
+      pacc[(size_t)i1 * D + d] = acc[nt][2];
+      pacc[(size_t)i1 * D + d + 1] = acc[nt][3];
+    }
+  }
+  __syncthreads();
+  finish<__nv_bfloat16, D>(pm, pl, pacc, WK, QC, w, Hq, G, n_split, ws_rows,
+                           ws, counters, out, &s_last,
+                           reinterpret_cast<float*>(smem));
+}
+
 // EPL consecutive elements as one aligned vector load.
 template <typename T, int EPL>
 struct alignas(sizeof(T) * EPL) Pack {
   T x[EPL];
 };
 
-template <typename T, int EPL>
-__device__ __forceinline__ void load(const T* __restrict__ p,
-                                     float (&out)[EPL]) {
-  const Pack<T, EPL> pk = *reinterpret_cast<const Pack<T, EPL>*>(p);
-#pragma unroll
-  for (int e = 0; e < EPL; ++e) out[e] = to_float(pk.x[e]);
-}
-
-template <typename T, int D, int GC>
-__global__ void __launch_bounds__(THREADS) decode_attn_kernel(
-    const T* __restrict__ q,         // [B, Hq, D]
-    const T* __restrict__ k,         // [B, S, Hkv, D]
-    const T* __restrict__ v,         // [B, S, Hkv, D]
-    const int* __restrict__ kv_len,  // [B]
-    T* __restrict__ out,             // [B, Hq, D]
-    int S, int Hq, int Hkv, float scale) {
+// f32 on CUDA cores: row group `grp` (a warp, or half a warp at D 16) takes
+// keys grp, grp + GROUPS, ... of every tile, lanes over D; GC query rows.
+template <int D, int GC>
+__global__ void __launch_bounds__(THREADS) attn_f32(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const int* __restrict__ kv_len,
+    float* __restrict__ out, float* __restrict__ ws,
+    int* __restrict__ counters, int S, int Hq, int Hkv, int n_chunks,
+    int split_len, int n_split, int ws_rows, float scale) {
   constexpr int EPL = D >= 32 ? D / 32 : 1;  // elements per lane
-  constexpr int LPR = D / EPL;               // lanes per KV row: 32 or 16
-  constexpr int RPW = 32 / LPR;              // rows a warp reads at once
-  constexpr int GROUPS = WARPS * RPW;        // row groups of the block
-
-  __shared__ float s_m[GROUPS][GC];
-  __shared__ float s_l[GROUPS][GC];
-  __shared__ float s_acc[GROUPS][GC][D];
-
-  const int b = blockIdx.x / Hkv, h = blockIdx.x % Hkv;
+  constexpr int LPR = D / EPL;               // lanes per key row: 32 or 16
+  constexpr int RPW = 32 / LPR;              // key rows a warp reads at once
+  constexpr int GROUPS = WARPS * RPW;
+  constexpr int TILE = TILE_F32;
+  constexpr int STRIDE = D * 4 + PAD, SLOT = 2 * TILE * STRIDE;
+  extern __shared__ __align__(16) char smem[];
+  __shared__ int s_last;
   const int G = Hq / Hkv;
-  const int g0 = blockIdx.y * GC;
-  const int ng = min(GC, G - g0);
+  const Work w = locate(kv_len, S, Hkv, G, n_chunks, GC, split_len);
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int sub = lane / LPR, col = (lane % LPR) * EPL;
-  const int group = warp * RPW + sub;
-  const int n = min(max(kv_len[b], 0), S);
+  const int col = (lane % LPR) * EPL, grp = warp * RPW + lane / LPR;
 
   // this lane's slice of each query row, pre-scaled; rows past G are 0
   float qr[GC][EPL];
+  const float* qb = q + ((size_t)w.b * Hq + (size_t)w.h * G + w.g0) * D;
 #pragma unroll
   for (int g = 0; g < GC; ++g) {
-    if (g < ng) {
-      load<T, EPL>(q + ((size_t)b * Hq + (size_t)h * G + g0 + g) * D + col,
-                   qr[g]);
+    const Pack<float, EPL> pk =
+        g < w.rows ? *reinterpret_cast<const Pack<float, EPL>*>(qb + g * D + col)
+                   : Pack<float, EPL>{};
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) qr[g][e] *= scale;
-    } else {
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) qr[g][e] = 0.f;
-    }
+    for (int e = 0; e < EPL; ++e) qr[g][e] = pk.x[e] * scale;
   }
   float m[GC], l[GC], acc[GC][EPL];
 #pragma unroll
@@ -114,158 +459,166 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(
     for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
   }
 
-  const size_t row = (size_t)Hkv * D;
-  const T* kb = k + ((size_t)b * S * Hkv + h) * D + col;
-  const T* vb = v + ((size_t)b * S * Hkv + h) * D + col;
-  // row group `group` takes rows group, group + GROUPS, ...; the loop bound
-  // is uniform across the warp, so the shuffles below see every lane
-  for (int base = warp * RPW; base < n; base += GROUPS * UNROLL) {
-    float kr[UNROLL][EPL], vr[UNROLL][EPL];
-    bool ok[UNROLL];
+  const int n_tiles = w.hi > w.lo ? (w.hi - w.lo + TILE - 1) / TILE : 0;
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int s = base + u * GROUPS + sub;
-      ok[u] = s < n;
-      if (ok[u]) {
-        load<T, EPL>(kb + s * row, kr[u]);
-        load<T, EPL>(vb + s * row, vr[u]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) kr[u][e] = vr[u][e] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_tiles)
+      load_tile<float, D, TILE>(smem + s * SLOT, k, v, w, S, Hkv,
+                                w.lo + s * TILE);
+    cp_commit();
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_wait<STAGES - 2>();
+    __syncthreads();
+    const int nx = it + STAGES - 1;
+    if (nx < n_tiles)
+      load_tile<float, D, TILE>(smem + (nx % STAGES) * SLOT, k, v, w, S, Hkv,
+                                w.lo + nx * TILE);
+    cp_commit();
+    const char* ks = smem + (it % STAGES) * SLOT;
+    const char* vs = ks + TILE * STRIDE;
+    const int base = w.lo + it * TILE;
+    // the trip count is uniform across the warp, so the shuffles see every
+    // lane
+    for (int r = grp; r < TILE; r += GROUPS) {
+      const bool ok = base + r < w.hi;
+      const Pack<float, EPL> kr =
+          *reinterpret_cast<const Pack<float, EPL>*>(ks + r * STRIDE + col * 4);
+      const Pack<float, EPL> vr =
+          *reinterpret_cast<const Pack<float, EPL>*>(vs + r * STRIDE + col * 4);
 #pragma unroll
       for (int g = 0; g < GC; ++g) {
         float x = 0.f;
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) x += qr[g][e] * kr[u][e];
+        for (int e = 0; e < EPL; ++e) x += qr[g][e] * kr.x[e];
 #pragma unroll
         for (int off = LPR / 2; off > 0; off >>= 1)
           x += __shfl_xor_sync(0xffffffffu, x, off);
-        if (ok[u]) {
-          if (x > m[g]) {  // a new max: rescale what came before
-            const float a = expf(m[g] - x);
-            l[g] = l[g] * a + 1.f;
+        if (!ok) continue;
+        if (x > m[g]) {  // a new max: rescale what came before
+          const float a = expf(m[g] - x);
+          l[g] = l[g] * a + 1.f;
 #pragma unroll
-            for (int e = 0; e < EPL; ++e)
-              acc[g][e] = acc[g][e] * a + vr[u][e];
-            m[g] = x;
-          } else {
-            const float p = expf(x - m[g]);
-            l[g] += p;
+          for (int e = 0; e < EPL; ++e) acc[g][e] = acc[g][e] * a + vr.x[e];
+          m[g] = x;
+        } else {
+          const float p = expf(x - m[g]);
+          l[g] += p;
 #pragma unroll
-            for (int e = 0; e < EPL; ++e) acc[g][e] += p * vr[u][e];
-          }
+          for (int e = 0; e < EPL; ++e) acc[g][e] += p * vr.x[e];
         }
       }
     }
   }
-
-#pragma unroll
-  for (int g = 0; g < GC; ++g) {
-    if (col == 0) {
-      s_m[group][g] = m[g];
-      s_l[group][g] = l[g];
-    }
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) s_acc[group][g][col + e] = acc[g][e];
-  }
+  cp_wait<0>();
   __syncthreads();
 
-  // merge the row groups' partial softmaxes
-  for (int i = threadIdx.x; i < ng * D; i += THREADS) {
-    const int g = i / D, d = i % D;
-    float mx = -INFINITY;
-    for (int r = 0; r < GROUPS; ++r) mx = fmaxf(mx, s_m[r][g]);
-    float o = 0.f;
-    if (mx != -INFINITY) {
-      float den = 0.f, num = 0.f;
-      for (int r = 0; r < GROUPS; ++r) {
-        const float w = expf(s_m[r][g] - mx);
-        den += s_l[r][g] * w;
-        num += s_acc[r][g][d] * w;
-      }
-      o = num / den;
+  float* pm = reinterpret_cast<float*>(smem);
+  float* pl = pm + GROUPS * GC;
+  float* pacc = pl + GROUPS * GC;
+#pragma unroll
+  for (int g = 0; g < GC; ++g) {
+    const int i = grp * GC + g;
+    if (col == 0) {
+      pm[i] = m[g];
+      pl[i] = l[g];
     }
-    out[((size_t)b * Hq + (size_t)h * G + g0 + g) * D + d] = from_float<T>(o);
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) pacc[(size_t)i * D + col + e] = acc[g][e];
   }
+  __syncthreads();
+  finish<float, D>(pm, pl, pacc, GROUPS, GC, w, Hq, G, n_split, ws_rows, ws,
+                   counters, out, &s_last, reinterpret_cast<float*>(smem));
 }
 
-template <typename T, int D>
-cudaError_t launch_d(const void* q, const void* k, const void* v,
-                     const void* kv_len, void* out, int S, int Hq, int Hkv,
-                     int gc, dim3 grid, float scale, cudaStream_t stream) {
-  const T* q_ = (const T*)q;
-  const T* k_ = (const T*)k;
-  const T* v_ = (const T*)v;
-  const int* n_ = (const int*)kv_len;
-  T* o_ = (T*)out;
-  switch (gc) {
-    case 1:
-      decode_attn_kernel<T, D, 1><<<grid, THREADS, 0, stream>>>(
-          q_, k_, v_, n_, o_, S, Hq, Hkv, scale);
-      break;
-    case 2:
-      decode_attn_kernel<T, D, 2><<<grid, THREADS, 0, stream>>>(
-          q_, k_, v_, n_, o_, S, Hq, Hkv, scale);
-      break;
-    case 4:
-      decode_attn_kernel<T, D, 4><<<grid, THREADS, 0, stream>>>(
-          q_, k_, v_, n_, o_, S, Hq, Hkv, scale);
-      break;
-    case 8:
-      decode_attn_kernel<T, D, 8><<<grid, THREADS, 0, stream>>>(
-          q_, k_, v_, n_, o_, S, Hq, Hkv, scale);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
+// Shared memory of a block: the K/V ring, reused for the warps' partials.
+int smem_bytes(int D, int esize, int qc, int tile) {
+  const int ring = STAGES * 2 * tile * (D * esize + PAD);
+  const int parts = esize == 2 ? WARPS
+                               : WARPS * (32 / (D / (D >= 32 ? D / 32 : 1)));
+  return ring > parts * qc * (D + 2) * 4 ? ring : parts * qc * (D + 2) * 4;
+}
+
+template <typename... P, typename... A>
+cudaError_t go(void (*kern)(P...), int smem, dim3 grid, cudaStream_t st,
+               A... args) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, THREADS, smem, st>>>(args...);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_t(const void* q, const void* k, const void* v,
-                     const void* kv_len, void* out, int S, int Hq, int Hkv,
-                     int D, int gc, dim3 grid, float scale,
-                     cudaStream_t stream) {
-  switch (D) {
-    case 16:
-      return launch_d<T, 16>(q, k, v, kv_len, out, S, Hq, Hkv, gc, grid,
-                             scale, stream);
-    case 32:
-      return launch_d<T, 32>(q, k, v, kv_len, out, S, Hq, Hkv, gc, grid,
-                             scale, stream);
-    case 64:
-      return launch_d<T, 64>(q, k, v, kv_len, out, S, Hq, Hkv, gc, grid,
-                             scale, stream);
-    case 128:
-      return launch_d<T, 128>(q, k, v, kv_len, out, S, Hq, Hkv, gc, grid,
-                              scale, stream);
-    default:
-      return cudaErrorInvalidValue;
+template <int D>
+cudaError_t launch_d(const void* q, const void* k, const void* v,
+                     const int* kv_len, void* out, float* ws, int* counters,
+                     int S, int Hq, int Hkv, int n_chunks, int split_len,
+                     int n_split, int ws_rows, int bf16, int qc, int smem,
+                     dim3 grid, float scale, cudaStream_t st) {
+  using B16 = __nv_bfloat16;
+  if (bf16) {
+    const B16 *q_ = (const B16*)q, *k_ = (const B16*)k, *v_ = (const B16*)v;
+    B16* o_ = (B16*)out;
+    if (qc != 16) return cudaErrorInvalidValue;
+    return go(attn_bf16<D>, smem, grid, st, q_, k_, v_, kv_len, o_, ws,
+              counters, S, Hq, Hkv, n_chunks, split_len, n_split, ws_rows,
+              scale);
   }
+  const float *q_ = (const float*)q, *k_ = (const float*)k, *v_ = (const float*)v;
+  float* o_ = (float*)out;
+#define ATTN_F32(GC)                                                       \
+  go(attn_f32<D, GC>, smem, grid, st, q_, k_, v_, kv_len, o_, ws, counters, \
+     S, Hq, Hkv, n_chunks, split_len, n_split, ws_rows, scale)
+  switch (qc) {
+    case 1: return ATTN_F32(1);
+    case 2: return ATTN_F32(2);
+    case 4: return ATTN_F32(4);
+    case 8: return ATTN_F32(8);
+    default: return cudaErrorInvalidValue;
+  }
+#undef ATTN_F32
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes.  q, k, v and out are bfloat16
 // (bf16 = 1) or float32 (bf16 = 0), contiguous, 16-byte aligned; kv_len is
-// int32 [B].  Launches on `stream` and returns cudaGetLastError() (0 =
-// launched); cudaErrorInvalidValue for a head dim other than 16, 32, 64 or
-// 128 or Hq not a multiple of Hkv.
+// int32 [B].  The geometry comes from the wrapper (kernels/decode_attn.py,
+// `plan`): `qc` query rows a block (16 in bf16; 1, 2, 4 or 8 in f32),
+// `tile` keys a ring stage, `n_split` spans of `split_len` rows covering
+// [0, S), `ws_rows` rows a span's partial holds in `ws` (f32,
+// B * Hkv * ceil(G / qc) * n_split * ws_rows * (D + 4)), and `smem` bytes of
+// dynamic shared memory; a geometry this file would not choose is refused.
+// `counters` (int32, one per group) must be zero before the first launch;
+// the kernel leaves them zero.  Launches on `stream` and returns
+// cudaGetLastError() (0 = launched); cudaErrorInvalidValue for a head dim
+// other than 16, 32, 64 or 128, Hq not a multiple of Hkv or a geometry
+// mismatch.
 extern "C" int acorn_decode_attn(const void* q, const void* k, const void* v,
-                                 const void* kv_len, void* out, int B, int S,
-                                 int Hq, int Hkv, int D, int bf16,
-                                 float scale, void* stream) {
-  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+                                 const void* kv_len, void* out, void* ws,
+                                 void* counters, int B, int S, int Hq,
+                                 int Hkv, int D, int bf16, int qc, int tile,
+                                 int n_split, int split_len, int ws_rows,
+                                 int smem, float scale, void* stream) {
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || qc <= 0 || n_split <= 0)
+    return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
-  const int gc = G > 4 ? 8 : G > 2 ? 4 : G;  // query rows per block
-  const dim3 grid(B * Hkv, (G + gc - 1) / gc);
+  const int n_chunks = (G + qc - 1) / qc;
+  if (tile != (bf16 ? TILE_BF16 : TILE_F32) || split_len % tile != 0 ||
+      (long long)n_split * split_len < S || ws_rows != (G < qc ? G : qc) ||
+      smem != smem_bytes(D, bf16 ? 2 : 4, qc, tile) ||
+      (2LL * n_split + 1) * ws_rows * 4 > smem)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(B * Hkv * n_chunks, n_split);
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)(bf16 ? launch_t<__nv_bfloat16>(q, k, v, kv_len, out, S, Hq,
-                                               Hkv, D, gc, grid, scale, st)
-                    : launch_t<float>(q, k, v, kv_len, out, S, Hq, Hkv, D,
-                                      gc, grid, scale, st));
+  const int* n_ = (const int*)kv_len;
+  float* ws_ = (float*)ws;
+  int* c_ = (int*)counters;
+  switch (D) {
+    case 16: return (int)launch_d<16>(q, k, v, n_, out, ws_, c_, S, Hq, Hkv, n_chunks, split_len, n_split, ws_rows, bf16, qc, smem, grid, scale, st);
+    case 32: return (int)launch_d<32>(q, k, v, n_, out, ws_, c_, S, Hq, Hkv, n_chunks, split_len, n_split, ws_rows, bf16, qc, smem, grid, scale, st);
+    case 64: return (int)launch_d<64>(q, k, v, n_, out, ws_, c_, S, Hq, Hkv, n_chunks, split_len, n_split, ws_rows, bf16, qc, smem, grid, scale, st);
+    case 128: return (int)launch_d<128>(q, k, v, n_, out, ws_, c_, S, Hq, Hkv, n_chunks, split_len, n_split, ws_rows, bf16, qc, smem, grid, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

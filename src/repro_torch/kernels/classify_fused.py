@@ -18,7 +18,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels import launch as _launch
 from repro_torch.kernels.launch import check, launch, on_card
 from repro_torch.kernels.tiling import (
     ClassifyFusedOperands,
@@ -31,10 +30,29 @@ __all__ = ["classify_fused", "classify_fused_plain", "packets_per_block",
 SOURCE = "classify_fused"        # csrc/classify_fused.cu
 
 
-def packets_per_block(T: int, F: int) -> int:
-    """Packets per block: a thread per (packet, tree) within 256 threads,
-    and the staged feature rows plus per-tree labels within 48 KB."""
-    return _launch.packets_per_block(T, F + T)
+WALK_WARPS = 4                   # warps a block that walk (packet, tree) pairs
+WALKS_PER_WARP = 4               # (packet, tree) walks a warp, 8 lanes each
+SMEM_BYTES = 48 * 1024           # static limit, no opt-in attribute needed
+MAX_PACKETS = 32                 # packets a block at most
+SMS = 132                        # H100 SXM
+WAVES = 2                        # the grid: at least two blocks an SM
+
+
+def packets_per_block(T: int, F: int, B: int | None = None, *,
+                      L: int = 0) -> int:
+    """Packets a block: its staged feature rows, per-tree labels, vid and
+    row lengths (F + T + 1 + L * T ints a packet, beside L layer bits)
+    within 48 KB, and at most ``MAX_PACKETS``.  Given the batch ``B``:
+    enough that every warp walks (packet, tree) pairs, but no more than
+    keep the grid at ``WAVES`` blocks an SM."""
+    cap = min(MAX_PACKETS, (SMEM_BYTES // 4 - L) // (F + T + 1 + L * T))
+    if cap < 1:
+        raise ValueError(f"{F + T + 1 + L * T} ints per packet do not fit "
+                         "one block's shared memory")
+    if B is None:
+        return cap
+    fill = -(-WALK_WARPS * WALKS_PER_WARP // max(T, 1))
+    return max(1, min(cap, fill, B // (WAVES * SMS)))
 
 
 def classify_fused_plain(codes, features, vid, layer_shift,
@@ -76,7 +94,7 @@ def classify_fused(codes: torch.Tensor, features: torch.Tensor,
             ("pred_codes", ops.pred_codes, i32, (V, T, P)),
             ("pred_labels", ops.pred_labels, i32, (V, T, P)),
             ("weights", ops.weights, torch.float32, (V, T)),
-            ("lut", ops.lut, i32, (V, H, F, levels)),
+            ("lut_fh", ops.lut_fh, i32, (V, F, levels, H)),
             ("bias", ops.bias, i32, (V, H))):
         check(name, x, dtype, shape)
     if ops.entries.data_ptr() % 16:
@@ -91,9 +109,9 @@ def classify_fused(codes: torch.Tensor, features: torch.Tensor,
         return out_codes, out_label, out_sums
     launch(SOURCE, "acorn_classify_fused", dev, codes, features, vid,
            layer_shift, ops.entries, ops.n_entries, ops.pred_codes,
-           ops.pred_labels, ops.weights, ops.lut, ops.bias, out_codes,
+           ops.pred_labels, ops.weights, ops.lut_fh, ops.bias, out_codes,
            out_label, out_sums, B, F, V, L, T, E, P, H, levels, n_classes,
-           packets_per_block(T, F))
+           packets_per_block(T, F, B, L=L))
     classify_fused.launches += 1
     return out_codes, out_label, out_sums
 

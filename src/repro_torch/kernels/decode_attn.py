@@ -4,13 +4,17 @@ cache) in one launch: the LM decode step's attention, once per layer.
 Replaces the Pallas TPU kernel ``decode_attn_pallas``
 (``src/repro/kernels/decode_attn.py:82``).  The kernel is CUDA C++ in
 ``csrc/decode_attn.cu``; the note at its top says what bounds it on an H100
-and what its design does about that.  This module holds:
+and what its design does about that (split-KV in one launch, a cp.async
+ring, tensor cores in bf16).  This module holds:
 
 * ``decode_attn`` — the wrapper.  On CUDA tensors it launches the kernel or
   raises; on CPU tensors it runs ``decode_attn_plain``.
   ``decode_attn.launches`` counts launches.
 * ``decode_attn_plain`` — the kernel's plain torch version on the same
   operands, the twin ``ref.decode_attn``.
+* ``plan`` — the launch geometry: query rows a block, keys a ring stage,
+  how the cache splits into spans, shared memory.  Plain Python, so the CPU
+  tests check it.
 
 The scale ``D ** -0.5`` goes to the kernel as a C ``float`` argument.  Like
 the TPU kernel, a row with ``kv_len <= 0`` gives zeros; ``kv_len`` past the
@@ -18,17 +22,102 @@ cache length reads the whole cache.
 """
 from __future__ import annotations
 
+import math
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.launch import check, launch, on_card
 
-__all__ = ["decode_attn", "decode_attn_plain", "HEAD_DIMS", "SOURCE"]
+__all__ = ["decode_attn", "decode_attn_plain", "plan", "Plan", "HEAD_DIMS",
+           "SOURCE"]
 
 SOURCE = "decode_attn"           # csrc/decode_attn.cu
 HEAD_DIMS = (16, 32, 64, 128)    # the kernel's instantiations
 _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 _ALIGN = 16                      # bytes: the kernel's widest vector load
+# csrc/decode_attn.cu's constants (the C entry refuses a geometry it would
+# not choose)
+STAGES = 3                       # cp.async ring depth
+PAD = 16                         # bytes after each staged row
+TILE = {torch.bfloat16: 64, torch.float32: 32}   # keys a ring stage
+# H100 SXM: SMs; shared memory an SM holds and a block may take; resident
+# blocks by registers at <= 128 a thread
+SMS = 132
+SMEM_PER_SM = 233_472
+SMEM_PER_BLOCK = 232_448
+BLOCK_RESERVED = 1024            # shared memory the card keeps per block
+MAX_RESIDENT = 4
+WAVES = 2                        # the grid: two whole waves of resident blocks
+MIN_SPLIT = 128                  # rows a span reads at least: a span's f32
+                                 # partial stays small beside its K/V
+
+
+class Plan(NamedTuple):
+    """One launch's geometry (see ``plan``)."""
+
+    qc: int            # query rows a block (a chunk of a KV head's G)
+    n_chunks: int      # chunks per KV head, ceil(G / qc)
+    tile: int          # keys a ring stage
+    n_split: int       # spans the cache range [0, S) is cut into
+    split_len: int     # rows a span, a multiple of ``tile``
+    ws_rows: int       # query rows a span's partial holds, min(G, qc)
+    smem: int          # dynamic shared memory a block, bytes
+    resident: int      # blocks an SM holds at once (shared memory, registers)
+    blocks: int        # the grid: B * Hkv * n_chunks * n_split
+
+
+def plan(B: int, Hq: int, Hkv: int, D: int, S: int,
+         dtype: torch.dtype) -> Plan:
+    """The kernel's geometry for q [B, Hq, D] over a cache of S rows.
+
+    bf16 runs on tensor cores with 16 query rows a block (G padded to 16,
+    or cut into chunks of 16), f32 on CUDA cores with 1, 2, 4 or 8.  The cache splits
+    into spans so that the grid holds at most ``WAVES`` times the blocks the
+    card keeps resident (a whole number of waves), with no span shorter than ``MIN_SPLIT`` rows (or one
+    tile), none starting past the cache, and no more than the merging block
+    can weigh in shared memory."""
+    G = Hq // Hkv
+    bf16 = dtype == torch.bfloat16
+    esize = 2 if bf16 else 4
+    if bf16:
+        qc, parts = 16, 4                       # 4 warps over the keys
+    else:
+        qc = 8 if G > 4 else 4 if G > 2 else G
+        parts = 4 * (2 if D == 16 else 1)       # row groups
+    n_chunks = -(-G // qc)
+    tile = TILE[dtype]
+    smem = max(STAGES * 2 * tile * (D * esize + PAD),
+               parts * qc * (D + 2) * 4)
+    resident = max(1, min(SMEM_PER_SM // (smem + BLOCK_RESERVED),
+                          MAX_RESIDENT))
+    groups = B * Hkv * n_chunks
+    # whole waves: a last, part-filled wave of blocks costs as much as a
+    # full one
+    want = WAVES * SMS * resident // max(groups, 1)
+    most = max(1, -(-S // max(MIN_SPLIT, tile)))
+    # the merging block holds each span's m and l per row in shared memory
+    most = min(most, (smem // 4 - min(G, qc)) // (2 * min(G, qc)))
+    n = max(1, min(want, most, 65535))
+    split_len = max(tile, -(-math.ceil(S / n) // tile) * tile)
+    n_split = max(1, -(-S // split_len))
+    return Plan(qc, n_chunks, tile, n_split, split_len, min(G, qc), smem,
+                resident, groups * n_split)
+
+
+_COUNTERS: dict = {}             # device -> int32 arrival counters, zeroed
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters on ``device``, kept across
+    calls: the kernel leaves them zero, so they are filled once.  Launches
+    on one stream at a time share them."""
+    c = _COUNTERS.get(device)
+    if c is None or c.numel() < n:
+        c = _COUNTERS[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                            device=device)
+    return c
 
 
 def decode_attn_plain(q, k, v, kv_len):
@@ -69,8 +158,16 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} is not {_ALIGN}-byte aligned")
     if B == 0:
         return out
-    launch(SOURCE, "acorn_decode_attn", q.device, q, k, v, kv_len, out, B, S,
-           Hq, Hkv, D, _DTYPES[q.dtype], D ** -0.5)
+    p = plan(B, Hq, Hkv, D, S, q.dtype)
+    if p.smem > SMEM_PER_BLOCK:
+        raise ValueError(f"{p.smem} bytes of shared memory a block")
+    groups = B * Hkv * p.n_chunks
+    ws = torch.empty(groups * p.n_split * p.ws_rows * (D + 4)
+                     if p.n_split > 1 else 1, dtype=torch.float32,
+                     device=q.device)
+    launch(SOURCE, "acorn_decode_attn", q.device, q, k, v, kv_len, out, ws,
+           _counters(q.device, groups), B, S, Hq, Hkv, D, _DTYPES[q.dtype],
+           p.qc, p.tile, p.n_split, p.split_len, p.ws_rows, p.smem, D ** -0.5)
     decode_attn.launches += 1
     return out
 

@@ -16,7 +16,7 @@ from repro_torch.kernels.build import build
 
 __all__ = ["on_card", "check", "launch", "packets_per_block"]
 
-THREADS = 256                    # every kernel's block size
+THREADS = 256                    # the staged kernels' block size
 SMEM_BYTES = 48 * 1024           # static limit, no opt-in attribute needed
 
 

@@ -72,8 +72,8 @@ class LutOperands(NamedTuple):
 
 class ClassifyFusedOperands(NamedTuple):
     """Kernel-ready operands of every classify mode (one exec-image group):
-    the fused kernel reads all of them, each staged kernel its part
-    (``walk``, ``leaves``, ``svm``)."""
+    the fused kernel reads the walk, the leaves, ``lut_fh`` and ``bias``;
+    each staged kernel its part (``walk``, ``leaves``, ``svm``)."""
 
     entries: torch.Tensor      # int32 [V, L, T, E, 4] walk entry records
     n_entries: torch.Tensor    # int32 [V, L, T] loop bound per (layer, tree)
@@ -82,6 +82,9 @@ class ClassifyFusedOperands(NamedTuple):
     weights: torch.Tensor      # f32   [V, T] vote weights
     lut: torch.Tensor          # int32 [V, H, F, levels] svm products
     bias: torch.Tensor         # int32 [V, H]
+    # the same products with the hyperplanes innermost, [V, F, levels, H]:
+    # a packet's H products of one feature are one contiguous gather
+    lut_fh: torch.Tensor
 
     @property
     def walk(self) -> WalkOperands:
@@ -154,12 +157,14 @@ def prep_classify_fused(code_value, code_mask, fid, f_lo, f_hi, set_bit,
                         lut, bias) -> ClassifyFusedOperands:
     """Source tables -> the kernels' operands, on the tables' device: the
     walk records, the leaves and the LUT (``prep_walk``, ``prep_leaves``,
-    ``prep_lut``), with the walk indexing the LUT's ``F`` features."""
+    ``prep_lut``), with the walk indexing the LUT's ``F`` features, and the
+    LUT again with the hyperplanes innermost for the fused kernel."""
+    svm = prep_lut(lut, bias)
     return ClassifyFusedOperands(
         *prep_walk(code_value, code_mask, fid, f_lo, f_hi, set_bit, valid,
                    lut.shape[2]),
         *prep_leaves(pred_codes, pred_labels, pred_valid, weights),
-        *prep_lut(lut, bias))
+        *svm, svm.lut.permute(0, 2, 3, 1).contiguous())
 
 
 def unpack_walk(ops: WalkOperands) -> tuple:

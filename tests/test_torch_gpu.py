@@ -10,9 +10,16 @@ Inputs are numpy draws from a seed.  The classify kernels' outputs are
 integers and the vote sums the same f32 weights in the same order, so their
 tolerance is exact; ``decode_attn`` differs from its plain version in
 summation order only, held to the JAX package's tolerances (bf16 atol 2e-2,
-f32 atol 2e-5, rtol 1e-2), and the LM on the card to the CPU run within
-f32 atol/rtol 1e-4.
+f32 atol 2e-5, rtol 1e-2; at full width bf16 to one unit in the last
+place), and the LM on the card to the CPU run within f32 atol/rtol 1e-4.
+The redesigned kernels are also held at their geometry's edges:
+``decode_attn`` at kv_len on and beside its tile and span edges for G 1-48
+and D 16-128, ``classify_fused`` on the conformance draws (drawn with the
+port's own models) and on blocks of one, all, an empty and an out-of-range
+version.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -20,7 +27,7 @@ import torch
 from repro_torch.core import distributed_plane as tdp
 from repro_torch.core import mlmodels as tml
 from repro_torch.core import planner as tpl
-from repro_torch.core.packets import PacketBatch
+from repro_torch.core.packets import PacketBatch, PacketType
 from repro_torch.core.plane import PlaneProfile, SwitchEngine
 from repro_torch.core.topology import fat_tree
 from repro_torch.core.translator import translate
@@ -372,3 +379,177 @@ def test_smoke_lm_on_the_card_equals_the_cpu(cuda):
     torch.testing.assert_close(
         transformer.forward(card, toks.to(cuda), cfg).cpu(),
         transformer.forward(cpu, toks, cfg), atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------- the kernels' geometry at edges
+from repro_torch.kernels import decode_attn as attn_module  # noqa: E402
+from repro_torch.kernels.classify_fused import packets_per_block  # noqa: E402
+
+
+def edge_lengths(p, S):
+    """kv_len at, beside and between the plan's tile and span edges, 0 and
+    S."""
+    edges = {0, 1, p.tile - 1, p.tile, p.tile + 1, p.split_len - 1,
+             p.split_len, p.split_len + 1, 2 * p.split_len, S - 1, S}
+    return sorted(x for x in edges if 0 <= x <= S)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("G", [1, 2, 6, 12, 48])
+def test_decode_attn_at_split_and_tile_edges(cuda, G, D, dtype):
+    """The split-KV kernel against its plain version with kv_len at and
+    beside the tile and span edges, 0 and the cache length; one launch,
+    and the same answer again (the arrival counters reset themselves)."""
+    Hkv, S = 2, 700
+    edges = edge_lengths(attn_module.plan(11, G * Hkv, Hkv, D, S, dtype), S)
+    p = attn_module.plan(len(edges), G * Hkv, Hkv, D, S, dtype)
+    assert p.n_split > 1
+    q, k, v, _ = attn_case(cuda, len(edges), G * Hkv, Hkv, D, S, dtype,
+                           seed=G * D)
+    kv_len = torch.tensor(edge_lengths(p, S), dtype=torch.int32, device=cuda)
+    assert kv_len.numel() == q.shape[0]
+    got, n = _launched(decode_attn, lambda: decode_attn(q, k, v, kv_len))
+    assert n == 1
+    want = decode_attn_plain(q, k, v, kv_len)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+    assert torch.equal(got[kv_len == 0], torch.zeros_like(got[kv_len == 0]))
+    assert torch.equal(decode_attn(q, k, v, kv_len), got)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,D,S", [(16, 48, 1, 128, 4096),
+                                          (4, 16, 8, 128, 32768)])
+def test_decode_attn_full_width_shapes(cuda, B, Hq, Hkv, D, S):
+    """granite-20b's heads at B 16 and internlm2-1.8b's at B 4 over a 32768
+    cache: one bf16 ulp of the plain version's output."""
+    ins = attn_case(cuda, B, Hq, Hkv, D, S, torch.bfloat16)
+    got, n = _launched(decode_attn, lambda: decode_attn(*ins))
+    assert n == 1
+    torch.testing.assert_close(got.float(), decode_attn_plain(*ins).float(),
+                               **ATTN_TOL_FULL[torch.bfloat16])
+
+
+def _classify_one(ops_, codes, feats, vid, shift, C):
+    got, n = _launched(classify_fused, lambda: classify_fused(
+        codes, feats, vid, shift, ops_, C))
+    assert n == 1
+    return got
+
+
+@pytest.mark.parametrize("blocks", ["one version", "all versions",
+                                    "empty slot", "vid out of range"])
+@pytest.mark.parametrize("B,T", [(1, 8), (601, 3), (4099, 8)])
+def test_classify_fused_block_mixes(cuda, blocks, B, T):
+    """Blocks of one version, of all four, of an empty slot and of vids
+    outside the zoo, at B 1, at B not a multiple of a block's packets (601
+    at 3 trees: 2 or 3 packets a block) and at the full profile: bit for
+    bit the twin, one launch."""
+    E, F, V, L, P, C, H, lv = 128, 60, 4, 32, 256, 32, 12, 256
+    if B == 601:
+        assert B % packets_per_block(T, F, B, L=L) != 0
+    args = random_case(B + len(blocks), B, T, E, F, V, L, P, C, H, lv, (2,),
+                       cuda)
+    vid = {"one version": torch.full((B,), 1),
+           "all versions": torch.arange(B) % V,
+           "empty slot": torch.full((B,), 2),
+           "vid out of range": torch.tensor([-1, V, V + 3] * B)[:B]}[blocks]
+    args[2] = vid.to(torch.int32).to(cuda)
+    want = ref.classify_fused_v(*args, C)
+    ops_ = tiling.prep_classify_fused(*args[3:10], *args[11:17])
+    got = _classify_one(ops_, args[0], args[1], args[2], args[10], C)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if blocks == "vid out of range":
+        assert torch.equal(got[0], args[0])
+        assert not got[1].any() and not got[2].any()
+
+
+# The conformance draws of tests/test_conformance.py (N_CASES, _profile,
+# _fit_random_model, _draw_zoo, _draw_traffic), drawn with the port's own
+# models, translator and install: that module imports the JAX package, and
+# tests/test_torch_plane.py shows the port draws the same tables from the
+# same rng stream.
+N_CASES = {1: 72, 4: 72, 8: 60}
+SIZES = (1, 2, 3, 5, 7, 12, 17, 24, 33, 48)
+
+
+def _conf_profile(V):
+    return PlaneProfile(max_features=10, max_trees=3, max_layers=6,
+                        max_entries_per_layer=32, max_leaves=32,
+                        max_classes=8, max_hyperplanes=8, max_versions=V)
+
+
+def _conf_model(kind, rng, seed):
+    n_classes = int(rng.integers(2, 5))
+    X = rng.integers(0, 256, (60, 10)).astype(np.int32)
+    y = rng.integers(0, n_classes, 60).astype(np.int64)
+    y[:n_classes] = np.arange(n_classes)
+    if kind == "dt":
+        return tml.DecisionTree(max_depth=int(rng.integers(2, 5)),
+                                max_leaf_nodes=int(rng.integers(6, 20))
+                                ).fit(X, y)
+    if kind == "rf":
+        return tml.RandomForest(n_estimators=int(rng.integers(2, 4)),
+                                max_depth=int(rng.integers(2, 4)),
+                                max_leaf_nodes=10, random_state=seed).fit(X, y)
+    return tml.LinearSVM(epochs=8, random_state=seed).fit(X, y)
+
+
+def _conf_case(V, case, engine):
+    seed = 7919 * V + case
+    rng = np.random.default_rng(seed)
+    progs = []
+    for v in rng.choice(V, size=int(rng.integers(1, min(V, 3) + 1)),
+                        replace=False):
+        kind = str(rng.choice(["dt", "rf", "svm"]))
+        progs.append(translate(_conf_model(kind, rng, seed), vid=int(v)))
+    packed = engine.empty()
+    for prog in progs:
+        packed = engine.install(packed, prog)
+    prof = engine.profile
+    B = int(SIZES[rng.integers(len(SIZES))])
+    X = rng.integers(0, 256, (B, 10)).astype(np.int32)
+    pick = rng.integers(0, len(progs), B)
+    mids = np.asarray([progs[c].mid for c in pick], np.int32)
+    pvids = np.asarray([progs[c].vid for c in pick], np.int32)
+    bad = rng.random(B) < 0.2
+    bad_vids = rng.choice(np.asarray([-1, V, V + 3], np.int32), B)
+    if len(progs) < V:
+        empty = np.setdiff1d(np.arange(V, dtype=np.int32),
+                             np.asarray([p.vid for p in progs], np.int32))
+        bad_vids = np.where(rng.random(B) < 0.5, rng.choice(empty, B),
+                            bad_vids)
+    pb = PacketBatch.make_request(
+        X, mid=mids, vid=np.where(bad, bad_vids, pvids),
+        max_features=prof.max_features, n_trees=prof.max_trees,
+        n_hyperplanes=prof.max_hyperplanes)
+    # passthrough mix: FORWARD / RESPONSE packets with intermediates
+    ptype = np.where(rng.random(B) < 0.2, PacketType.FORWARD,
+                     PacketType.REQUEST)
+    ptype = np.where(rng.random(B) < 0.1, PacketType.RESPONSE, ptype)
+    thru = ptype != PacketType.REQUEST
+    T, H = prof.max_trees, prof.max_hyperplanes
+    pb = dataclasses.replace(
+        pb, ptype=torch.from_numpy(ptype.astype(np.int32)),
+        codes=torch.from_numpy(np.where(
+            thru[:, None], rng.integers(0, 2**10, (B, T)), 0).astype(np.int32)),
+        svm_acc=torch.from_numpy(np.where(
+            thru[:, None], rng.integers(-50, 50, (B, H)), 0).astype(np.int32)),
+        rslt=torch.from_numpy(np.where(
+            thru, rng.integers(0, 8, B), -1).astype(np.int32)))
+    return packed, pb
+
+
+@pytest.mark.parametrize("V", sorted(N_CASES))
+def test_classify_fused_on_the_conformance_draws(cuda, V):
+    """All 204 draws: the engine on the card (one classify_fused launch a
+    classify) equals the twin engine bit for bit."""
+    engine = SwitchEngine(_conf_profile(V), device=cuda)
+    twin = SwitchEngine(_conf_profile(V), mode="ref", device=cuda)
+    for case in range(N_CASES[V]):
+        packed, pb = _conf_case(V, case, engine)
+        out, n = _launched(classify_fused, lambda: engine.classify(packed, pb))
+        assert n == 1
+        want = twin.classify(packed, pb)
+        for f in ("rslt", "codes", "svm_acc"):
+            assert torch.equal(getattr(out, f), getattr(want, f)), (case, f)

@@ -169,12 +169,12 @@ def test_prep_rejects_bounds_outside_int16():
         _prep(targs)
 
 
-@pytest.mark.parametrize("T,F,want", [(8, 60, 32), (1, 4, 256), (3, 10, 85),
+@pytest.mark.parametrize("T,F,want", [(8, 60, 32), (1, 4, 32), (3, 10, 32),
                                       (8, 6000, 2)])
 def test_packets_per_block_fits_threads_and_shared_memory(T, F, want):
     pb = packets_per_block(T, F)
     assert pb == want
-    assert pb * T <= 256 and pb * (F + T) * 4 <= 48 * 1024
+    assert pb <= 32 and pb * (F + T + 1) * 4 <= 48 * 1024
 
 
 def test_wrapper_rejects_other_devices():
