@@ -14,11 +14,15 @@ JAX package.  Phases, each fatal on failure:
 2. kernel  — random full-width tables for four zoo slots (one empty) at
              B in {1, 300, 4096}: the fused kernel's codes, labels and SVM
              sums must equal the torch twin's bit for bit.
-3. stages  — the same tables and batches: ``tree_walk``, ``tcam_match`` (at
-             the first, a middle and the last layer), ``forest_vote`` (on
-             codes that hit leaves) and ``svm_lookup`` (with a bias and
-             features outside [0, levels)) each equal their plain version
-             bit for bit.
+3. stages  — random full-width tables at the same batches, then at the
+             staged kernels' geometry edges (B 1, B just past a block's
+             packets, T 3 and 33, H 1 and 16): ``tree_walk``,
+             ``tcam_match`` (at the first, a middle and the last layer),
+             ``forest_vote`` (on codes that hit leaves) and ``svm_lookup``
+             (with a bias and features outside [0, levels)) each equal
+             their plain version bit for bit; ``tcam_match`` also on rows
+             of length 0, 1, 8, 9 and 20 (a hit at the last valid entry or
+             none, matching records past the row), shifts 3, 31 and 32.
 4. attn    — ``decode_attn`` against its plain version on the
              ``tests/test_kernels.py`` sweep and at internlm2-1.8b's full
              width (B 16, 16 query and 8 KV heads of 128, S 4096), each in
@@ -70,12 +74,15 @@ JAX package.  Phases, each fatal on failure:
              ``scaled_dot_product_attention``, and a profiler table; the
              same for ``decode_attn`` at the two further shapes of phase 4;
              each kernel's gap to its bound, launch geometry, and the
-             redesigned kernels' registers and shared memory.
+             redesigned kernels' registers and shared memory; the card's
+             floor per launch (``launch_floor_ms``: an empty kernel at
+             ``tcam_match``'s grid, and at one block, launched and timed
+             the same way).
 
 Each main path (5, 6, 7, 8) runs with every kernel's launch count set to 0
 just before it and read just after; a kernel of the path that never
 launched fails the run.  Output: a ``paths`` JSON line, a ``kernels`` JSON
-line, the card's name and power limit, and last
+line (with ``launch_floor_ms``), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -247,9 +254,25 @@ def kernel_phase(prof, seed, device):
               "on the empty slot)")
 
 
+# the staged kernels' geometry edges beside the full-width batches: (B,
+# profile fields): B 1; B just past a block's packets (tcam_match: 4 at 8
+# trees, 10 at 3; svm_lookup: 8); T 3 and 33 (a lane group walks more than
+# one tree); H 1 and H at svm_lookup.MAX_H (16)
+STAGE_EDGES = [
+    (5, dict(max_hyperplanes=16)),
+    (11, dict(max_trees=3, max_hyperplanes=1, max_features=10,
+              max_layers=4)),
+    (9, dict(max_hyperplanes=16, max_entries_per_layer=9, max_layers=3)),
+    (40, dict(max_trees=33, max_hyperplanes=5, max_features=13,
+              max_entries_per_layer=17, max_layers=3)),
+]
+
+
 def stage_phase(prof, seed, device):
-    """Each staged kernel against its plain version on random full-width
-    tables (the operand image the plane would install)."""
+    """Each staged kernel against its plain version on random tables (the
+    operand image the plane would install): at full width at B in {1, 300,
+    4096}, then at the geometry edges (``STAGE_EDGES``), then
+    ``tcam_match`` on rows at its lane groups' edges (``tcam_edge_rows``)."""
     import numpy as np
     import torch
     from repro_torch.kernels import tiling
@@ -259,15 +282,6 @@ def stage_phase(prof, seed, device):
     from repro_torch.kernels.tree_walk import tree_walk, tree_walk_plain
 
     rng = np.random.default_rng(seed + 7)
-    tabs = random_tables(rng, prof, torch, device, empty_slot=2)
-    V, T, L = prof.max_versions, prof.max_trees, prof.max_layers
-    lv, H = prof.levels, prof.max_hyperplanes
-    bias = torch.from_numpy(rng.integers(-10_000, 10_000, (V, H))
-                            .astype(np.int32)).to(device)
-    img = tiling.prep_classify_fused(*(tabs[k] for k in (
-        "code_value", "code_mask", "fid", "f_lo", "f_hi", "set_bit", "valid",
-        "pred_codes", "pred_labels", "pred_valid", "weights", "lut")), bias)
-    shift, C = tabs["layer_shift"], prof.max_classes
 
     def same(what, got, want):
         torch.cuda.synchronize()
@@ -277,12 +291,24 @@ def stage_phase(prof, seed, device):
                 raise AssertionError(f"{what} != its plain version in "
                                      f"{int((g != w).sum())} places")
 
-    for B in (1, 300, BATCH):
-        def ints(lo, hi, shape):
-            return torch.from_numpy(rng.integers(lo, hi, shape)
-                                    .astype(np.int32)).to(device)
+    def ints(lo, hi, shape):
+        return torch.from_numpy(rng.integers(lo, hi, shape)
+                                .astype(np.int32)).to(device)
+
+    cases = [(B, {}) for B in (1, 300, BATCH)] + STAGE_EDGES
+    for B, fields in cases:
+        p = dataclasses.replace(prof, **fields)
+        tabs = random_tables(rng, p, torch, device, empty_slot=2)
+        V, T, L = p.max_versions, p.max_trees, p.max_layers
+        lv, H = p.levels, p.max_hyperplanes
+        bias = ints(-10_000, 10_000, (V, H))
+        img = tiling.prep_classify_fused(*(tabs[k] for k in (
+            "code_value", "code_mask", "fid", "f_lo", "f_hi", "set_bit",
+            "valid", "pred_codes", "pred_labels", "pred_valid", "weights",
+            "lut")), bias)
+        shift, C = tabs["layer_shift"], p.max_classes
         codes = ints(0, 2**12, (B, T))
-        feats = ints(0, lv, (B, prof.max_features))
+        feats = ints(0, lv, (B, p.max_features))
         vid = ints(0, V, B)
         same(f"tree_walk B={B}", tree_walk(codes, feats, vid, shift, img.walk),
              tree_walk_plain(codes, feats, vid, shift, img.walk))
@@ -293,20 +319,63 @@ def stage_phase(prof, seed, device):
         # codes that hit a leaf of their version (80%), else stay random
         v = vid.long()
         hits = img.pred_codes[v[:, None], torch.arange(T, device=device),
-                              ints(0, prof.max_leaves, (B, T)).long()]
+                              ints(0, p.max_leaves, (B, T)).long()]
         leaf_codes = torch.where(ints(0, 5, (B, T)) > 0, hits, codes)
         got = forest_vote(leaf_codes, vid, img.leaves, C)
         same(f"forest_vote B={B}", got,
              forest_vote_plain(leaf_codes, vid, img.leaves, C))
-        # features outside [0, levels) add 0
+        # features outside [0, levels), above and below, add 0
         wide = torch.where(ints(0, 10, feats.shape) == 0,
                            ints(lv, lv + 100, feats.shape), feats)
         wide[::7, 0] = -1
         same(f"svm_lookup B={B}", svm_lookup(wide, vid, img.svm),
              svm_lookup_plain(wide, vid, img.svm))
-        print(f"B={B}: tree_walk, tcam_match (layers 0, {L // 2}, {L - 1}), "
-              f"forest_vote ({int((got[1] != 0).sum())} leaf hits) and "
-              "svm_lookup == plain bit for bit")
+        print(f"B={B} T={T} H={H} F={p.max_features} E="
+              f"{p.max_entries_per_layer}: tree_walk, tcam_match (layers 0, "
+              f"{L // 2}, {L - 1}), forest_vote ({int((got[1] != 0).sum())} "
+              "leaf hits) and svm_lookup == plain bit for bit")
+    for shift in (3, 31, 32):
+        codes, feats, vid, ops_ = tcam_edge_rows(20, torch, device)
+        sh = torch.tensor([shift], dtype=torch.int32, device=device)
+        got = tcam_match(codes, feats, vid, sh, ops_, 0)
+        same(f"tcam_match edge rows, shift {shift}", got,
+             tcam_match_plain(codes, feats, vid, sh, ops_, 0))
+        changed = int((got[0] != codes[0]).sum())
+        print(f"tcam_match on rows of length 0, 1, 8, 9, 20 (hit at the "
+              f"last valid entry or none), shift {shift}: == plain, "
+              f"{changed} of {codes.shape[1]} rows set the bit")
+
+
+def tcam_edge_rows(E, torch, device):
+    """One version, one layer, a tree per row: lengths 0, 1, 8, 9 (one
+    lane group's round and one past it) and E, each with a hit at its last
+    valid entry and with none; two hits in one round, the first with
+    set_bit 0; a hit in a later round; every record past a row's length
+    would match.  Packets: code 0b101, features 5; vids 0, -1 and 1."""
+    lengths, hits = [], []
+    for n in (1, 8, 9, E):
+        lengths += [n, n]
+        hits += [[n - 1], []]
+    lengths += [0, 8, E]
+    hits += [[], [2, 5], [11, 17]]
+    T = len(lengths)
+    rec = torch.zeros((1, 1, T, E, 4), dtype=torch.int32)
+    rec[..., 0], rec[..., 1] = 0b010, 0b111
+    rec[..., 2], rec[..., 3] = 5 << 16, 5 | (1 << 16)
+    for t, (n, hit) in enumerate(zip(lengths, hits)):
+        rec[0, 0, t, n:, 0] = 0b101
+        for e in hit:
+            rec[0, 0, t, e, 0] = 0b101
+        if hit == [2, 5]:
+            rec[0, 0, t, 2, 3] = 5
+    from repro_torch.kernels.tiling import WalkOperands
+
+    ops_ = WalkOperands(rec.to(device), torch.tensor(
+        lengths, dtype=torch.int32, device=device).reshape(1, 1, T))
+    codes = torch.full((3, T), 0b101, dtype=torch.int32, device=device)
+    feats = torch.full((3, 4), 5, dtype=torch.int32, device=device)
+    vid = torch.tensor([0, -1, 1], dtype=torch.int32, device=device)
+    return codes, feats, vid, ops_
 
 
 def close(got, want, atol, rtol):
@@ -1084,13 +1153,14 @@ def kernel_resources(libs, seed):
     import shutil
     import signal
 
-    for name in ("decode_attn", "classify_fused"):
+    for name in ("decode_attn", "classify_fused", "tcam_match",
+                 "svm_lookup"):
         fn = None
         for line in libs[name].log.splitlines():
             if "Compiling entry function" in line:
                 fn = line.split("'")[1]
-            elif "Used" in line and fn:
-                print(f"{name} {fn}: {line.split(':', 1)[1].strip()}")
+            elif ("Used" in line or "spill" in line) and fn:
+                print(f"{name} {fn}: {line.split(':', 1)[-1].strip()}")
     ncu = shutil.which("ncu")
     if ncu is None:
         print("ncu: not on this machine; occupancy and DRAM throughput not "
@@ -1174,7 +1244,10 @@ def ms(fn, n, torch, cycles_per_ms):
     The device first sleeps for longer than the host takes to enqueue the
     ``n`` calls (1.5x a timed dry run of them), so the events time the
     device's work back to back, not the host's launch path; that path's
-    cost shows end to end and in the profiler tables instead."""
+    cost shows end to end and in the profiler tables instead.  A run whose
+    enqueue outlasted the sleep (the host slowed: the device waited for
+    launches) is not kept: it is run again with twice the sleep, up to
+    four times, and the last run is kept with a warning."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -1185,12 +1258,22 @@ def ms(fn, n, torch, cycles_per_ms):
     host_ms = (time.perf_counter() - t0) * 1e3
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(1.5 * host_ms * cycles_per_ms) + 1000)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    for attempt in range(4):
+        sleep_ms = 1.5 * 2 ** attempt * host_ms + 0.5
+        t0 = time.perf_counter()
+        torch.cuda._sleep(int(sleep_ms * cycles_per_ms))
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        enqueued_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if enqueued_ms < sleep_ms:
+            break
+    else:
+        print(f"  timing: the host's enqueue ({enqueued_ms:.3f} ms) outlasted "
+              f"the card's sleep ({sleep_ms:.3f} ms) four times; the time "
+              "below includes the host's launch gaps")
     return start.elapsed_time(end) / n
 
 
@@ -1245,6 +1328,8 @@ def timing_phase(zoos, runtimes, pb, prof, torch, n_iter=50):
         classify_fused_plain,
         packets_per_block,
     )
+    from repro_torch.kernels import svm_lookup as svm_module
+    from repro_torch.kernels import tcam_match as tcam_module
     from repro_torch.kernels.forest_vote import forest_vote, forest_vote_plain
     from repro_torch.kernels.svm_lookup import svm_lookup, svm_lookup_plain
     from repro_torch.kernels.tcam_match import tcam_match, tcam_match_plain
@@ -1296,7 +1381,40 @@ def timing_phase(zoos, runtimes, pb, prof, torch, n_iter=50):
           f"{-(-B // pb_n)} blocks of 160 threads, "
           f"{(pb_n * (F + T + 1 + L * T) + L) * 4} bytes of shared memory a "
           "block")
-    out = {}
+    g = tcam_module.geometry(B, T)
+    print(f"tcam_match geometry at B {B}: {tcam_module.LANES} lanes a "
+          f"(packet, tree), {g.packets} packets a block, {g.blocks} blocks "
+          f"of {g.threads} threads ({g.blocks * g.threads / 32 / 132:.1f} "
+          "warps an SM on 132), no shared memory")
+    H = prof.max_hyperplanes
+    gs = svm_module.geometry(B, H)
+    print(f"svm_lookup geometry at B {B}, H {H}: {svm_module.LANES} lanes "
+          f"a packet ({gs.cell_lanes} a cell, a quad of hyperplanes each, x "
+          f"{gs.slices} slices of the features), {gs.packets} packets a "
+          f"block, {gs.blocks} blocks of {gs.threads} threads "
+          f"({gs.blocks * gs.threads / 32 / 132:.1f} warps an SM), no shared "
+          "memory")
+
+    def empty_layers(blocks, threads):
+        def run():
+            for _ in range(L):
+                tcam_module.empty_launch(dev, blocks, threads)
+        return run
+    # the card's floor per launch: an empty kernel launched as tcam_match
+    # is (L back to back, the same path), at its grid and at one block
+    floor = {}
+    for what, (blocks, threads) in (("tcam_match's grid",
+                                     (g.blocks, g.threads)),
+                                    ("one block of 32", (1, 32))):
+        n = max(3, n_iter // L)
+        runs = [ms(empty_layers(blocks, threads), n, torch, cyc) / L
+                for _ in range(2)]
+        floor[what] = min(runs)
+        print(f"launch_floor_ms ({what}, {blocks} x {threads}): "
+              f"{runs[0]:.5f} ms and {runs[1]:.5f} ms (device time per "
+              f"launch, two runs of {n} calls of {L} launches)")
+    out = {"launch_floor_ms": floor["tcam_match's grid"],
+           "launch_floor_one_block_ms": floor["one block of 32"]}
     for name, (kernel, plain, per) in calls.items():
         err = max_abs_err(kernel(), plain())
         # at most ~n_iter launches a timed run: the device's launch queue
@@ -1321,6 +1439,8 @@ def timing_phase(zoos, runtimes, pb, prof, torch, n_iter=50):
                          max_abs_err=err, matched=err == 0,
                          library_ms=lib_ms, bytes=nbytes[name])
 
+    print(f"tcam_match per launch / launch_floor_ms at its grid: "
+          f"{out['tcam_match']['ms'] / out['launch_floor_ms']:.2f}x")
     B = pb.batch
     X = pb.features.numpy()
     mid, vids = pb.mid.numpy(), pb.vid.numpy()
@@ -1451,7 +1571,9 @@ def main(argv=None) -> int:
         "plain_ms": t[name]["plain_ms"], "bound_ms": t[name]["bound_ms"],
         "bound_by": "bytes", "library_ms": t[name]["library_ms"],
         "matched_twin": t[name]["matched"]}
-        for name in kernels()]}))
+        for name in kernels()],
+        "launch_floor_ms": t["launch_floor_ms"],
+        "launch_floor_one_block_ms": t["launch_floor_one_block_ms"]}))
     print(smi[0] if smi else "nvidia-smi: no answer")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 // Device functions shared by the staged classify kernels (tree_walk,
-// tcam_match, forest_vote, svm_lookup): one walk row, one leaf lookup, the
-// weighted vote and one SVM hyperplane sum.  Each is the per-(packet, tree)
-// or per-(packet, hyperplane) step of the plain torch version in
+// tcam_match, forest_vote): one walk row (by one thread, or by a group of
+// lanes), one leaf lookup and the weighted vote.  Each is the
+// per-(packet, tree) step of the plain torch version in
 // src/repro_torch/kernels/ref.py, so the staged kernels compute the same
 // bits by construction.  The fused kernel (classify_fused.cu) does the same
 // steps with lanes working together on one pair, held to the same plain
@@ -39,6 +39,52 @@ __device__ __forceinline__ unsigned walk_row(unsigned code, const int* feat,
   return code;
 }
 
+// Does record `r` match `code` and the feature row `feat`?  The test of
+// walk_row, computed without a branch.
+__device__ __forceinline__ bool record_matches(const int4& r, unsigned code,
+                                               const int* feat) {
+  const int x = feat[(short)(r.z & 0xFFFF)];
+  const bool in_range = x >= (r.z >> 16) && x <= (int)(short)(r.w & 0xFFFF);
+  return in_range && (code & (unsigned)r.y) == (unsigned)r.x;
+}
+
+// walk_row for one (packet, tree) by the GL lanes of a group: the same
+// first match, found GL records a round.  Each round the group's lanes load
+// GL consecutive records of the row at once (one coalesced load), each lane
+// tests its own, and one ballot finds the round's first hit (the lowest
+// lane: the lowest entry); a second ballot reads that hit's set bit.
+// Rounds go on while no hit is found and entries remain.  The row length
+// `n_row[0]` is read once by the group's first lane and shuffled to the
+// others, and the first round's records are loaded beside it (every one of
+// the row's E records may be read: the hit test masks those at or past
+// n); each later round's records are loaded before the current round's are
+// tested.  `glane` is the lane's index in its group, `gmask` the group's
+// lanes in the warp; every lane of the group passes the same code, row and
+// shift and gets the same code back.
+template <int GL>
+__device__ __forceinline__ unsigned walk_row_group(
+    unsigned code, const int* feat, const int4* rec, const int* n_row, int E,
+    int shift, int glane, unsigned gmask) {
+  const int4 none = make_int4(0, -1, 1 << 16, 0);  // fid 0, range [1, 0]
+  int4 r = glane < E ? __ldg(rec + glane) : none;
+  int n = glane == 0 ? __ldg(n_row) : 0;
+  n = __shfl_sync(gmask, n, 0, GL);
+  const unsigned bit = shift >= 0 && shift < 32 ? 1u << shift : 0u;
+  for (int e0 = 0; e0 < n; e0 += GL) {
+    const int e = e0 + glane;
+    const int4 nxt = e + GL < n ? __ldg(rec + e + GL) : none;
+    const bool hit = e < n && record_matches(r, code, feat);
+    const unsigned hits = __ballot_sync(gmask, hit);
+    if (hits) {
+      const unsigned set = __ballot_sync(gmask, hit && (r.w & 0x10000));
+      if (set & hits & (0u - hits)) code |= bit;
+      break;
+    }
+    r = nxt;
+  }
+  return code;
+}
+
 // dt_predict for one (packet, tree): lower-bound binary search of `code`
 // over the P >= 1 leaf codes `pc`, sorted in unsigned order; the label at an
 // exact match, else 0.  Invalid leaves carry label 0 already.
@@ -68,20 +114,6 @@ __device__ __forceinline__ int vote(const int* lab, const float* w, int T,
     if (score > best) { best = score; best_c = c; }
   }
   return best_c;
-}
-
-// svm_mul + native adds for one (packet, hyperplane):
-// bias + sum_f lut_h[f, feat[f]] in int32, wrapping mod 2^32; a feature
-// outside [0, levels) adds 0.
-__device__ __forceinline__ int svm_sum(const int* feat, const int* lut_h,
-                                       int F, int levels, int bias) {
-  unsigned acc = (unsigned)bias;
-  for (int j = 0; j < F; ++j) {
-    const int x = feat[j];
-    if (x >= 0 && x < levels)
-      acc += (unsigned)__ldg(lut_h + (size_t)j * levels + x);
-  }
-  return (int)acc;
 }
 
 }  // namespace acorn

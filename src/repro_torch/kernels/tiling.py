@@ -30,7 +30,8 @@ thread reads an entry with a single vector load:
 ``n_entries[v, l, t]`` is one past the last valid entry of each row, the
 walk's loop bound.  Leaf validity folds into the labels (an invalid leaf
 reads label 0, which is what a miss yields), and the LUT stays int32
-``[V, H, F, levels]``.
+``[V, H, F, levels]``, beside a copy with the hyperplanes innermost,
+``lut_fh`` ``[V, F, levels, H]``, that the fused and SVM kernels gather.
 """
 from __future__ import annotations
 
@@ -64,10 +65,14 @@ class LeafOperands(NamedTuple):
 
 
 class LutOperands(NamedTuple):
-    """The SVM products: what ``svm_lookup`` reads."""
+    """The SVM products: ``svm_lookup`` reads ``lut_fh`` and ``bias``, its
+    plain version ``lut`` and ``bias``."""
 
     lut: torch.Tensor          # int32 [V, H, F, levels] svm products
     bias: torch.Tensor         # int32 [V, H]
+    # the same products with the hyperplanes innermost, [V, F, levels, H]:
+    # a packet's H products of one feature are one contiguous gather
+    lut_fh: torch.Tensor
 
 
 class ClassifyFusedOperands(NamedTuple):
@@ -96,7 +101,7 @@ class ClassifyFusedOperands(NamedTuple):
 
     @property
     def svm(self) -> LutOperands:
-        return LutOperands(self.lut, self.bias)
+        return LutOperands(self.lut, self.bias, self.lut_fh)
 
 
 def _check_i16(name: str, x: torch.Tensor) -> None:
@@ -147,9 +152,11 @@ def prep_leaves(pred_codes, pred_labels, pred_valid,
 
 
 def prep_lut(lut, bias) -> LutOperands:
-    """``[V, H, F, levels]`` products + ``[V, H]`` bias, as int32."""
-    return LutOperands(lut.to(torch.int32).contiguous(),
-                       bias.to(torch.int32).contiguous())
+    """``[V, H, F, levels]`` products + ``[V, H]`` bias, as int32, and the
+    products again with the hyperplanes innermost (``lut_fh``)."""
+    lut = lut.to(torch.int32).contiguous()
+    return LutOperands(lut, bias.to(torch.int32).contiguous(),
+                       lut.permute(0, 2, 3, 1).contiguous())
 
 
 def prep_classify_fused(code_value, code_mask, fid, f_lo, f_hi, set_bit,
@@ -157,14 +164,12 @@ def prep_classify_fused(code_value, code_mask, fid, f_lo, f_hi, set_bit,
                         lut, bias) -> ClassifyFusedOperands:
     """Source tables -> the kernels' operands, on the tables' device: the
     walk records, the leaves and the LUT (``prep_walk``, ``prep_leaves``,
-    ``prep_lut``), with the walk indexing the LUT's ``F`` features, and the
-    LUT again with the hyperplanes innermost for the fused kernel."""
-    svm = prep_lut(lut, bias)
+    ``prep_lut``), with the walk indexing the LUT's ``F`` features."""
     return ClassifyFusedOperands(
         *prep_walk(code_value, code_mask, fid, f_lo, f_hi, set_bit, valid,
                    lut.shape[2]),
         *prep_leaves(pred_codes, pred_labels, pred_valid, weights),
-        *svm, svm.lut.permute(0, 2, 3, 1).contiguous())
+        *prep_lut(lut, bias))
 
 
 def unpack_walk(ops: WalkOperands) -> tuple:

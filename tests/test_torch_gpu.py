@@ -16,7 +16,9 @@ The redesigned kernels are also held at their geometry's edges:
 ``decode_attn`` at kv_len on and beside its tile and span edges for G 1-48
 and D 16-128, ``classify_fused`` on the conformance draws (drawn with the
 port's own models) and on blocks of one, all, an empty and an out-of-range
-version.
+version, ``tcam_match`` and ``svm_lookup`` at B 1, B just past a block's
+packets, T 3 and 33, H 1 and 16, and ``tcam_match`` on rows of length 0,
+1, 8, 9 and E (hit at the last valid entry, no hit, shift 31 and 32).
 """
 import dataclasses
 
@@ -170,13 +172,26 @@ def _launched(fn, call):
     return out, fn.launches - before
 
 
-@pytest.mark.parametrize("B,T,E,F,V,L,P,C,H,levels,empty", SWEEP)
+# the staged kernels' geometry edges: B 1; B just past a block's packets
+# (tcam_match: 4 at 8 trees, 10 at 3; svm_lookup: 8); T 3 and T 33 (a
+# group walks more than one tree); H 1 and H at svm_lookup.MAX_H (16)
+STAGE_EDGES = [
+    (1, 8, 128, 60, 4, 32, 256, 32, 12, 256, (3,)),
+    (5, 8, 128, 60, 4, 32, 256, 32, 16, 256, ()),
+    (11, 3, 20, 10, 2, 4, 16, 4, 1, 16, ()),
+    (9, 8, 9, 60, 2, 3, 16, 4, 16, 256, (1,)),
+    (40, 33, 17, 13, 2, 3, 16, 4, 5, 32, ()),
+]
+
+
+@pytest.mark.parametrize("B,T,E,F,V,L,P,C,H,levels,empty",
+                         SWEEP + STAGE_EDGES)
 def test_stage_kernels_match_plain(cuda, B, T, E, F, V, L, P, C, H, levels,
                                    empty):
     """Each staged kernel equals its plain version on the same operands,
     one launch per call; tcam_match at the first, a middle and the last
     layer; the vote on codes that hit leaves, with misses; the SVM with a
-    bias and out-of-range features."""
+    bias and features outside [0, levels), above and below."""
     args = random_case(B * 31 + V, B, T, E, F, V, L, P, C, H, levels, empty,
                        cuda)
     codes, feats, vid, shift = args[0], args[1], args[2], args[10]
@@ -213,6 +228,69 @@ def test_stage_kernels_match_plain(cuda, B, T, E, F, V, L, P, C, H, levels,
     got, n = _launched(svm_lookup, lambda: svm_lookup(wide, vid, lut))
     assert n == 1
     assert torch.equal(got, svm_lookup_plain(wide, vid, lut))
+
+
+def tcam_edge_rows(E, device):
+    """One version, one layer, a tree per row: lengths 0, 1, 8, 9 (one
+    lane group's round and one past it) and E, each with a hit at its last
+    valid entry and with none; two hits in one round, the first with
+    set_bit 0; a hit in a later round; every record past a row's length
+    would match.  Packets: code 0b101, features 5; vids 0, -1 and 1."""
+    lengths, hits = [], []
+    for n in (1, 8, 9, E):
+        lengths += [n, n]
+        hits += [[n - 1], []]
+    lengths += [0, 8, E]
+    hits += [[], [2, 5], [11, 17]]
+    T = len(lengths)
+    rec = torch.zeros((1, 1, T, E, 4), dtype=torch.int32)
+    rec[..., 0], rec[..., 1] = 0b010, 0b111
+    rec[..., 2], rec[..., 3] = 5 << 16, 5 | (1 << 16)
+    for t, (n, hit) in enumerate(zip(lengths, hits)):
+        rec[0, 0, t, n:, 0] = 0b101
+        for e in hit:
+            rec[0, 0, t, e, 0] = 0b101
+        if hit == [2, 5]:
+            rec[0, 0, t, 2, 3] = 5
+    ops_ = tiling.WalkOperands(rec.to(device), torch.tensor(
+        lengths, dtype=torch.int32, device=device).reshape(1, 1, T))
+    codes = torch.full((3, T), 0b101, dtype=torch.int32, device=device)
+    feats = torch.full((3, 4), 5, dtype=torch.int32, device=device)
+    vid = torch.tensor([0, -1, 1], dtype=torch.int32, device=device)
+    return codes, feats, vid, ops_
+
+
+@pytest.mark.parametrize("shift", [3, 31, 32])
+def test_tcam_match_edge_rows(cuda, shift):
+    """The lane-group walk on rows of length 0, 1, 8, 9 and E with a hit at
+    the last valid entry or none, records past a row that would match,
+    shift 31 and 32: equal to the plain version, one launch."""
+    codes, feats, vid, ops_ = tcam_edge_rows(20, cuda)
+    sh = torch.tensor([shift], dtype=torch.int32, device=cuda)
+    got, n = _launched(tcam_match, lambda: tcam_match(codes, feats, vid, sh,
+                                                      ops_, 0))
+    assert n == 1
+    assert torch.equal(got, tcam_match_plain(codes, feats, vid, sh, ops_, 0))
+    assert torch.equal(got[1:], codes[1:])
+
+
+def test_svm_lookup_refuses_an_h_beyond_the_kernel(cuda):
+    """H above the kernel's register budget (svm_lookup.MAX_H) raises; the
+    plain version still answers on the CPU."""
+    from repro_torch.kernels.svm_lookup import MAX_H
+
+    V, H, F, lv = 2, MAX_H + 1, 6, 8
+    lut = torch.ones((V, H, F, lv), dtype=torch.int32)
+    ops_ = tiling.prep_lut(lut, torch.zeros((V, H), dtype=torch.int32))
+    feats = torch.zeros((4, F), dtype=torch.int32)
+    vid = torch.zeros((4,), dtype=torch.int32)
+    on_card = tiling.LutOperands(*(x.to(cuda) for x in ops_))
+    before = svm_lookup.launches
+    with pytest.raises(ValueError, match="hyperplanes"):
+        svm_lookup(feats.to(cuda), vid.to(cuda), on_card)
+    assert svm_lookup.launches == before
+    assert torch.equal(svm_lookup(feats, vid, ops_),
+                       torch.full((4, H), F, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("mode,per_classify", [
