@@ -16,7 +16,8 @@ JAX package.  Phases, each fatal on failure:
              sums must equal the torch twin's bit for bit.
 3. stages  — random full-width tables at the same batches, then at the
              staged kernels' geometry edges (B 1, B just past a block's
-             packets, T 3 and 33, H 1 and 16): ``tree_walk``,
+             packets, T 1, 3 and 33, H 1 and 16, L 13, P 1 and 9, C 33):
+             ``tree_walk``,
              ``tcam_match`` (at the first, a middle and the last layer),
              ``forest_vote`` (on codes that hit leaves) and ``svm_lookup``
              (with a bias and features outside [0, levels)) each equal
@@ -31,7 +32,10 @@ JAX package.  Phases, each fatal on failure:
              attentions must fail; at granite-20b's heads (48 query, 1 KV)
              at B 16 and internlm2-1.8b's at B 4 over a 32768 cache; at
              kv_len on and beside the kernel's tile and span edges, 0 and
-             S; rows with ``kv_len = 0`` give zeros.
+             S; rows with ``kv_len = 0`` give zeros; then at the two
+             further shapes on two streams at once (launches of both in
+             flight together, each holding its own arrival counters), every
+             output within the full-width bound.
 5. path    — a zoo at the paper's profile (``PlaneProfile(max_versions=4)``)
              built with the port's own models and translator: an 8-tree
              random forest and a deeper decision tree on the cicids-17
@@ -73,17 +77,18 @@ JAX package.  Phases, each fatal on failure:
              per launch against its bound, plain version and
              ``scaled_dot_product_attention``, and a profiler table; the
              same for ``decode_attn`` at the two further shapes of phase 4;
-             each kernel's gap to its bound, launch geometry, and the
-             redesigned kernels' registers and shared memory; the card's
+             each kernel's gap to its bound, launch geometry, and every
+             kernel's registers and shared memory; the card's
              floor per launch (``launch_floor_ms``: an empty kernel at
-             ``tcam_match``'s grid, and at one block, launched and timed
-             the same way).
+             ``tcam_match``'s grid, at ``forest_vote``'s and at one block,
+             launched and timed the same way).
 
 Each main path (5, 6, 7, 8) runs with every kernel's launch count set to 0
 just before it and read just after; a kernel of the path that never
 launched fails the run.  Output: a ``paths`` JSON line, a ``kernels`` JSON
 line (with ``launch_floor_ms``), the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  ``--two-streams`` runs only phase 4's
+two-stream check, against the sources beside the script.
 """
 from __future__ import annotations
 
@@ -256,8 +261,11 @@ def kernel_phase(prof, seed, device):
 
 # the staged kernels' geometry edges beside the full-width batches: (B,
 # profile fields): B 1; B just past a block's packets (tcam_match: 4 at 8
-# trees, 10 at 3; svm_lookup: 8); T 3 and 33 (a lane group walks more than
-# one tree); H 1 and H at svm_lookup.MAX_H (16)
+# trees, 10 at 3; svm_lookup: 8; tree_walk and forest_vote: 2 at 8 trees
+# from B 528 on, 6 at 3 from B 1584, 16 at 1 from B 4224); T 3 and 33 (a
+# lane group walks more than one tree); H 1 and H at svm_lookup.MAX_H (16);
+# L 13 (two chunks of the walk's 8 layers, the last part-filled); P 9 and
+# P 1 (the leaf search's rounds); C 33 (two chunks of the vote's classes)
 STAGE_EDGES = [
     (5, dict(max_hyperplanes=16)),
     (11, dict(max_trees=3, max_hyperplanes=1, max_features=10,
@@ -265,6 +273,10 @@ STAGE_EDGES = [
     (9, dict(max_hyperplanes=16, max_entries_per_layer=9, max_layers=3)),
     (40, dict(max_trees=33, max_hyperplanes=5, max_features=13,
               max_entries_per_layer=17, max_layers=3)),
+    (529, dict(max_layers=13)),
+    (1585, dict(max_trees=3, max_features=10, max_layers=4, max_leaves=9,
+                max_classes=33)),
+    (4225, dict(max_trees=1, max_leaves=1, max_layers=13)),
 ]
 
 
@@ -488,6 +500,58 @@ def edge_phase(gen, device):
                 raise AssertionError("decode_attn: kv_len 0 is not zeros")
 
 
+def two_streams(seed, device, rounds=6, per_round=8):
+    """``decode_attn`` launched on two streams at once, at the two phase 4
+    shapes that split the cache (``ATTN_WIDE``): each round both streams
+    sleep on the card while the host enqueues ``per_round`` launches on
+    each, alternating, so the two streams' launches run together; every
+    output is held to the plain version at the full-width bf16 bound.
+    Returns {shape: (launches, wrong outputs)}; raises nothing itself."""
+    import torch
+    from repro_torch.kernels.decode_attn import (
+        decode_attn,
+        decode_attn_plain,
+        plan,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(seed + 19)
+    cyc = sleep_cycles_per_ms(torch)
+    streams = [torch.cuda.Stream(device) for _ in range(2)]
+    tol = ATTN_TOL_FULL["bfloat16"]
+    found = {}
+    for name, shape in ATTN_WIDE.items():
+        p = plan(*shape, torch.bfloat16)
+        ins = [attn_inputs(gen, *shape, torch.bfloat16, device)
+               for _ in streams]
+        want = [decode_attn_plain(*x) for x in ins]
+        torch.cuda.synchronize()
+        bad = total = 0
+        worst = 0.0
+        for _ in range(rounds):
+            outs = [[] for _ in streams]
+            for s in streams:
+                with torch.cuda.stream(s):
+                    torch.cuda._sleep(int(5 * cyc))
+            for _ in range(per_round):
+                for i, s in enumerate(streams):
+                    with torch.cuda.stream(s):
+                        outs[i].append(decode_attn(*ins[i]))
+            torch.cuda.synchronize()
+            for i, got in enumerate(outs):
+                for o in got:
+                    err, ok = close(o, want[i], *tol)
+                    worst = max(worst, err)
+                    bad += not ok
+                    total += 1
+        found[name] = (total, bad)
+        print(f"two streams at once, {name}: {p.n_split} spans a group, "
+              f"{total} launches, {bad} outputs outside the full-width bound "
+              f"(max abs err {worst:.3g})")
+        del ins, want
+        torch.cuda.empty_cache()
+    return found
+
+
 def attn_phase(seed, device):
     """decode_attn against its plain version: the tests/test_kernels.py:166
     sweep and the full width, each in bf16 and f32."""
@@ -531,6 +595,9 @@ def attn_phase(seed, device):
                       *ATTN_TOL["float32"])[1]):
         raise AssertionError("decode_attn: rows of kv_len 0 are not zeros")
     print("kv_len = 0 rows give zeros, as the TPU kernel does")
+    if any(bad for _, bad in two_streams(seed, device).values()):
+        raise AssertionError("decode_attn on two streams at once != its "
+                             "plain version")
 
 
 def make_zoo(seed):
@@ -1154,7 +1221,7 @@ def kernel_resources(libs, seed):
     import signal
 
     for name in ("decode_attn", "classify_fused", "tcam_match",
-                 "svm_lookup"):
+                 "svm_lookup", "tree_walk", "forest_vote"):
         fn = None
         for line in libs[name].log.splitlines():
             if "Compiling entry function" in line:
@@ -1328,8 +1395,10 @@ def timing_phase(zoos, runtimes, pb, prof, torch, n_iter=50):
         classify_fused_plain,
         packets_per_block,
     )
+    from repro_torch.kernels import forest_vote as vote_module
     from repro_torch.kernels import svm_lookup as svm_module
     from repro_torch.kernels import tcam_match as tcam_module
+    from repro_torch.kernels import tree_walk as walk_module
     from repro_torch.kernels.forest_vote import forest_vote, forest_vote_plain
     from repro_torch.kernels.svm_lookup import svm_lookup, svm_lookup_plain
     from repro_torch.kernels.tcam_match import tcam_match, tcam_match_plain
@@ -1395,6 +1464,18 @@ def timing_phase(zoos, runtimes, pb, prof, torch, n_iter=50):
           f"({gs.blocks * gs.threads / 32 / 132:.1f} warps an SM), no shared "
           "memory")
 
+    gw = walk_module.geometry(B, T, F, L)
+    print(f"tree_walk geometry at B {B}: {walk_module.LANES} lanes a (packet,"
+          f" tree), {gw.packets} packets a block, {gw.blocks} blocks of "
+          f"{gw.threads} threads ({gw.blocks * gw.threads / 32 / 132:.1f} "
+          f"warps an SM on 132), {gw.smem} bytes of shared memory a block")
+    gv = vote_module.geometry(B, T)
+    print(f"forest_vote geometry at B {B}: {vote_module.LANES} lanes a "
+          f"(packet, tree), a warp a packet's vote, {gv.packets} packets a "
+          f"block, {gv.blocks} blocks of {gv.threads} threads "
+          f"({gv.blocks * gv.threads / 32 / 132:.1f} warps an SM), {gv.smem} "
+          "bytes of shared memory a block")
+
     def empty_layers(blocks, threads):
         def run():
             for _ in range(L):
@@ -1405,6 +1486,8 @@ def timing_phase(zoos, runtimes, pb, prof, torch, n_iter=50):
     floor = {}
     for what, (blocks, threads) in (("tcam_match's grid",
                                      (g.blocks, g.threads)),
+                                    ("forest_vote's grid",
+                                     (gv.blocks, gv.threads)),
                                     ("one block of 32", (1, 32))):
         n = max(3, n_iter // L)
         runs = [ms(empty_layers(blocks, threads), n, torch, cyc) / L
@@ -1414,6 +1497,7 @@ def timing_phase(zoos, runtimes, pb, prof, torch, n_iter=50):
               f"{runs[0]:.5f} ms and {runs[1]:.5f} ms (device time per "
               f"launch, two runs of {n} calls of {L} launches)")
     out = {"launch_floor_ms": floor["tcam_match's grid"],
+           "launch_floor_forest_vote_grid_ms": floor["forest_vote's grid"],
            "launch_floor_one_block_ms": floor["one block of 32"]}
     for name, (kernel, plain, per) in calls.items():
         err = max_abs_err(kernel(), plain())
@@ -1440,7 +1524,11 @@ def timing_phase(zoos, runtimes, pb, prof, torch, n_iter=50):
                          library_ms=lib_ms, bytes=nbytes[name])
 
     print(f"tcam_match per launch / launch_floor_ms at its grid: "
-          f"{out['tcam_match']['ms'] / out['launch_floor_ms']:.2f}x")
+          f"{out['tcam_match']['ms'] / out['launch_floor_ms']:.2f}x; "
+          f"forest_vote / launch_floor_ms at its grid: "
+          f"{out['forest_vote']['ms'] / out['launch_floor_forest_vote_grid_ms']:.2f}x"
+          f"; tree_walk / classify_fused: "
+          f"{out['tree_walk']['ms'] / out['classify_fused']['ms']:.2f}x")
     B = pb.batch
     X = pb.features.numpy()
     mid, vids = pb.mid.numpy(), pb.vid.numpy()
@@ -1461,7 +1549,7 @@ def timing_phase(zoos, runtimes, pb, prof, torch, n_iter=50):
         rps[name] = n_req * B / dt
         print(f"{name} end to end: {rps[name]:.0f} requests/s "
               f"({dt / n_req * 1e3:.3f} ms per {B}-request batch)")
-    for name in ("zoo_fused", "zoo_layerwise"):
+    for name in ("zoo_fused", "zoo_unfused", "zoo_layerwise"):
         print(f"-- where the time goes, {name}")
         where_the_time_goes(steps[name], torch)
     return out, rps
@@ -1473,6 +1561,10 @@ def main(argv=None) -> int:
     ap.add_argument("--ncu-probe", action="store_true",
                     help="only launch the redesigned kernels once each, "
                          "for ncu (phase 9 runs this under ncu)")
+    ap.add_argument("--two-streams", action="store_true",
+                    help="only phase 4's two-stream check of decode_attn "
+                         "against the sources beside this script; exits 1 "
+                         "if an output was wrong")
     args = ap.parse_args(argv)
     import torch
 
@@ -1486,6 +1578,9 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SRC))
     if args.ncu_probe:
         return ncu_probe(args.seed)
+    if args.two_streams:
+        found = two_streams(args.seed, torch.device("cuda"))
+        return int(any(bad for _, bad in found.values()))
     from repro_torch.core.plane import PlaneProfile
 
     t_start = time.perf_counter()
@@ -1573,6 +1668,8 @@ def main(argv=None) -> int:
         "matched_twin": t[name]["matched"]}
         for name in kernels()],
         "launch_floor_ms": t["launch_floor_ms"],
+        "launch_floor_forest_vote_grid_ms":
+            t["launch_floor_forest_vote_grid_ms"],
         "launch_floor_one_block_ms": t["launch_floor_one_block_ms"]}))
     print(smi[0] if smi else "nvidia-smi: no answer")
     print(json.dumps({"ok": True, "device": {

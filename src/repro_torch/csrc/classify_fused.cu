@@ -44,10 +44,13 @@
 //     slices added with shuffles (int32 adds wrap: any order, same bits);
 //   * the leaf lookup is a GL-ary lower-bound search (3 rounds of one
 //     load a lane at 256 leaves, where a binary search chains 8 loads); it
-//     finds the same position as acorn::leaf_label on the sorted leaves;
+//     finds the position the twin's searchsorted finds on the sorted leaves;
 //   * the vote is a warp per packet, a lane per class, each score summed
 //     in tree order t = 0..T-1 as the twin sums it with the weights passed
 //     by shuffle, then a shuffle argmax (ties to the smaller class);
+//   * the walk, the leaf lookup and the vote are the device functions of
+//     acorn_device.cuh (walk_pair, leaf_label_group, vote_warp), which the
+//     staged tree_walk and forest_vote kernels run too;
 //   * PB packets a block (2 at the zoo's 8 trees), chosen by the wrapper
 //     (kernels/classify_fused.py, `packets_per_block`) so every walking
 //     lane has a pair and the grid holds at least two blocks an SM.
@@ -63,6 +66,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "acorn_device.cuh"
+
 namespace {
 
 constexpr int WALK_WARPS = 4;     // warps that walk (packet, tree) pairs
@@ -70,107 +75,8 @@ constexpr int WARPS = WALK_WARPS + 1;   // and one that sums the SVM LUTs
 constexpr int THREADS = 32 * WARPS;
 constexpr int GL = 8;             // lanes that walk one (packet, tree)
 constexpr int GPW = 32 / GL;      // (packet, tree) walks a warp
-constexpr unsigned FULL = 0xffffffffu;
-constexpr unsigned GMASK = GL == 32 ? FULL : (1u << GL) - 1;
+constexpr unsigned FULL = acorn::FULL;
 constexpr int SVM_BATCH = 8;      // LUT gathers a lane has in flight
-
-__device__ __forceinline__ int4 no_match() { return make_int4(0, -1, 1, 0); }
-
-// Does record `r` match `code` and the feature row `feat`?  Both tests
-// are computed without a branch, so the feature read waits on the record
-// only, not on the code.
-__device__ __forceinline__ bool matches(const int4& r, unsigned code,
-                                        const int* feat) {
-  const int x = feat[(short)(r.z & 0xFFFF)];
-  const bool in_range = x >= (r.z >> 16) && x <= (int)(short)(r.w & 0xFFFF);
-  return in_range && (code & (unsigned)r.y) == (unsigned)r.x;
-}
-
-// The walk of GPW (packet, tree) pairs by one warp, GL lanes each: every
-// layer of the pairs' rows, in order, each layer's first match found GL
-// records at a time with one ballot (and a second for the set bits).  The
-// first GL records of the next layer a pair needs are loaded before this
-// layer is compared, since a row's place does not depend on the code.
-// `rows` is the pair's row at layer 0 (layer l at l * T rows on), `sn` its
-// row lengths in shared memory (stride T; zeros off the zoo), `s_bit` each
-// layer's bit (0 for a shift outside [0, 32)).  Returns the pair's final
-// code (the same in the group's lanes).
-__device__ __forceinline__ unsigned walk_pair(unsigned code, const int* feat,
-                                              const int4* rows, const int* sn,
-                                              const unsigned* s_bit, int L,
-                                              int T, int E, int glane,
-                                              int gbase) {
-  for (int l0 = 0; l0 < L; l0 += GL) {
-    // a lane per layer of this chunk: which layers any pair of the warp has
-    const int l = l0 + glane;
-    const unsigned has = __ballot_sync(FULL, l < L && sn[l * T] > 0);
-    unsigned todo = 0;
-#pragma unroll
-    for (int g = 0; g < GPW; ++g) todo |= (has >> (g * GL)) & GMASK;
-    if (!todo) continue;
-    int j = __ffs(todo) - 1;
-    int n = sn[(l0 + j) * T];
-    const int4* row = rows + (l0 + j) * T * E;
-    int4 cur = glane < n ? __ldg(row + glane) : no_match();
-    while (true) {
-      todo &= todo - 1;
-      // the next layer's first records, before this layer's compares
-      const int jn = __ffs(todo) - 1;
-      const int nn = todo ? sn[(l0 + jn) * T] : 0;
-      const int4* row_n = rows + (l0 + jn) * T * E;
-      const int4 nxt = glane < nn ? __ldg(row_n + glane) : no_match();
-      bool hit = matches(cur, code, feat);
-      unsigned mine = (__ballot_sync(FULL, hit) >> gbase) & GMASK;
-      unsigned set =
-          (__ballot_sync(FULL, hit && (cur.w & 0x10000)) >> gbase) & GMASK;
-      // rows longer than GL: further rounds while a pair has no match
-      if (__any_sync(FULL, !mine && n > GL)) {
-        for (int e0 = GL; __any_sync(FULL, !mine && e0 < n); e0 += GL) {
-          const int4 r = !mine && e0 + glane < n ? __ldg(row + e0 + glane)
-                                                 : no_match();
-          hit = !mine && matches(r, code, feat);
-          const unsigned more = (__ballot_sync(FULL, hit) >> gbase) & GMASK;
-          const unsigned more_set =
-              (__ballot_sync(FULL, hit && (r.w & 0x10000)) >> gbase) & GMASK;
-          if (!mine) {
-            mine = more;
-            set = more_set;
-          }
-        }
-      }
-      // the first match's set bit: the lowest bit of `mine`
-      if (set & mine & (0u - mine)) code |= s_bit[l0 + j];
-      if (!todo) break;
-      j = jn;
-      n = nn;
-      row = row_n;
-      cur = nxt;
-    }
-  }
-  return code;
-}
-
-// acorn::leaf_label for one (packet, tree) by its GL lanes: the same lower
-// bound of `code` over the sorted leaf codes, found by a GL-ary search
-// (ceil(log_GL P) rounds of one load a lane, 3 at P 256) in place of a
-// chain of log2 P loads.
-__device__ __forceinline__ int leaf_label_group(const unsigned* pc,
-                                                const int* labels, int P,
-                                                unsigned code, int glane,
-                                                int gbase) {
-  // invariant: pc[i] < code for i < lo, and hi == P or pc[hi] >= code
-  int lo = 0, hi = P;
-  for (int step = (P + GL - 1) / GL;; step = (step + GL - 1) / GL) {
-    const int idx = lo + (glane + 1) * step - 1;
-    const bool below = idx < hi && __ldg(pc + idx) < code;
-    const int count = __popc((__ballot_sync(FULL, below) >> gbase) & GMASK);
-    lo += count * step;
-    hi = min(hi, lo + step - 1);
-    if (step == 1) break;
-  }
-  const int pos = min(lo, P - 1);
-  return __ldg(pc + pos) == code ? __ldg(labels + pos) : 0;
-}
 
 __global__ void __launch_bounds__(THREADS) classify_fused_kernel(
     const int* __restrict__ codes,        // [B, T] uint32 bits
@@ -268,12 +174,12 @@ __global__ void __launch_bounds__(THREADS) classify_fused_kernel(
     unsigned code = pair ? (unsigned)codes[(size_t)b * T + t] : 0u;
     const int v = pair ? s_vid[p] : -1;
     const bool in = v >= 0 && v < V;
-    code = walk_pair(code, s_feat + p * F,
-                     entries + ((size_t)(in ? v : 0) * L * T + t) * E,
-                     s_n + p * L * T + t, s_bit, L, T, E, glane, gbase);
+    code = acorn::walk_pair<GL>(
+        code, s_feat + p * F, entries + ((size_t)(in ? v : 0) * L * T + t) * E,
+        s_n + p * L * T + t, s_bit, L, T, E, glane, gbase);
     const size_t leaf = ((size_t)(in ? v : 0) * T + t) * P;
-    const int label = leaf_label_group(pred_codes + leaf, pred_labels + leaf,
-                                       P, code, glane, gbase);
+    const int label = acorn::leaf_label_group<GL>(
+        pred_codes + leaf, pred_labels + leaf, P, code, glane, gbase);
     if (pair && glane == 0) {
       out_codes[(size_t)b * T + t] = (int)code;
       s_label[p * T + t] = in ? label : 0;
@@ -288,34 +194,10 @@ __global__ void __launch_bounds__(THREADS) classify_fused_kernel(
   for (int p = warp; p < n_here; p += WARPS) {
     const int v = s_vid[p];
     const bool in = v >= 0 && v < V;
-    float best = -INFINITY;
-    int best_c = 0;
-    const int* lab = s_label + p * T;
     const float* w = weights + (size_t)(in ? v : 0) * T;
-    for (int c0 = 0; c0 < n_classes; c0 += 32) {
-      const int c = c0 + lane;
-      float score = 0.f;
-      for (int t0 = 0; t0 < T; t0 += 32) {
-        const float wl = t0 + lane < T ? __ldg(w + t0 + lane) : 0.f;
-        for (int t = 0; t < min(32, T - t0); ++t) {
-          const float wt = __shfl_sync(FULL, wl, t);
-          if (lab[t0 + t] == c) score += wt;
-        }
-      }
-      if (c < n_classes && score > best) {
-        best = score;
-        best_c = c;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ob = __shfl_xor_sync(FULL, best, off);
-      const int oc = __shfl_xor_sync(FULL, best_c, off);
-      if (ob > best || (ob == best && oc < best_c)) {
-        best = ob;
-        best_c = oc;
-      }
-    }
+    const int best_c = acorn::vote_warp(s_label + p * T, w,
+                                        lane < T ? __ldg(w + lane) : 0.f, T,
+                                        n_classes, lane);
     if (lane == 0) out_label[b0 + p] = in ? best_c : 0;
   }
 }

@@ -28,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.launch import check, launch, on_card
+from repro_torch.kernels.launch import check, current_stream, launch, on_card
 
 __all__ = ["decode_attn", "decode_attn_plain", "plan", "Plan", "HEAD_DIMS",
            "SOURCE"]
@@ -106,17 +106,24 @@ def plan(B: int, Hq: int, Hkv: int, D: int, S: int,
                 resident, groups * n_split)
 
 
-_COUNTERS: dict = {}             # device -> int32 arrival counters, zeroed
+# (device, stream handle) -> int32 arrival counters, zeroed
+_COUNTERS: dict = {}
 
 
-def _counters(device: torch.device, n: int) -> torch.Tensor:
-    """At least ``n`` zeroed int32 counters on ``device``, kept across
-    calls: the kernel leaves them zero, so they are filled once.  Launches
-    on one stream at a time share them."""
-    c = _COUNTERS.get(device)
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters for the launches on ``stream``
+    (a handle, the current stream of ``device``), kept across calls: the
+    kernel leaves them zero, so they are filled once, by ``torch.zeros`` on
+    that same current stream, ahead of the launch that reads them.  Each
+    (device, stream) has its own: the last span block of a group is the one
+    whose ``atomicAdd`` on its group's counter sees ``n_split - 1``, so two
+    launches in flight at once on two streams must not count on the same
+    counters.  Launches on one stream run in order and share them."""
+    key = (device, stream)
+    c = _COUNTERS.get(key)
     if c is None or c.numel() < n:
-        c = _COUNTERS[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
-                                            device=device)
+        c = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                         device=device)
     return c
 
 
@@ -165,9 +172,11 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ws = torch.empty(groups * p.n_split * p.ws_rows * (D + 4)
                      if p.n_split > 1 else 1, dtype=torch.float32,
                      device=q.device)
+    stream = current_stream(q.device)
     launch(SOURCE, "acorn_decode_attn", q.device, q, k, v, kv_len, out, ws,
-           _counters(q.device, groups), B, S, Hq, Hkv, D, _DTYPES[q.dtype],
-           p.qc, p.tile, p.n_split, p.split_len, p.ws_rows, p.smem, D ** -0.5)
+           _counters(q.device, stream, groups), B, S, Hq, Hkv, D,
+           _DTYPES[q.dtype], p.qc, p.tile, p.n_split, p.split_len, p.ws_rows,
+           p.smem, D ** -0.5, stream=stream)
     decode_attn.launches += 1
     return out
 

@@ -14,10 +14,7 @@ import torch
 
 from repro_torch.kernels.build import build
 
-__all__ = ["on_card", "check", "launch", "packets_per_block"]
-
-THREADS = 256                    # the staged kernels' block size
-SMEM_BYTES = 48 * 1024           # static limit, no opt-in attribute needed
+__all__ = ["on_card", "check", "launch", "current_stream"]
 
 
 def on_card(kernel: str, **tensors: torch.Tensor) -> bool:
@@ -56,32 +53,28 @@ def _c_type(arg):
     raise TypeError(f"no C type for a kernel argument of {type(arg)}")
 
 
-def launch(source: str, symbol: str, device: torch.device, *args) -> None:
+def current_stream(device: torch.device) -> int:
+    """The handle of PyTorch's current stream on ``device``: where
+    ``launch`` puts a kernel unless it is given another."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(source: str, symbol: str, device: torch.device, *args,
+           stream: int | None = None) -> None:
     """Build ``csrc/<source>.cu`` (once) and launch its C function
-    ``symbol`` on the current stream of ``device``.  ``args`` are tensors,
-    passed as device pointers, ints, passed as C ``int``, and floats,
-    passed as C ``float``; the stream goes last.  Raises if the launch is
-    refused (too many threads, too much shared memory)."""
+    ``symbol`` on ``stream`` (a handle; by default the current stream of
+    ``device``).  ``args`` are tensors, passed as device pointers, ints,
+    passed as C ``int``, and floats, passed as C ``float``; the stream goes
+    last.  Raises if the launch is refused (too many threads, too much
+    shared memory)."""
     fn = getattr(build(source)[source].lib, symbol)
     if fn.argtypes is None:
         fn.argtypes = [_c_type(a) for a in args] + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+        if stream is None:
+            stream = current_stream(device)
         err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
                    for a in args), stream)
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
-
-
-def packets_per_block(threads: int, smem_ints: int) -> int:
-    """Packets per block when each packet takes ``threads`` threads and
-    ``smem_ints`` ints of shared memory: within 256 threads and 48 KB."""
-    if threads > THREADS:
-        raise ValueError(f"{threads} threads per packet > {THREADS} of one "
-                         "block")
-    pb = min(THREADS // max(threads, 1), SMEM_BYTES // (4 * max(smem_ints, 1)))
-    if pb < 1:
-        raise ValueError(f"{smem_ints} ints per packet do not fit one "
-                         "block's shared memory")
-    return pb

@@ -16,9 +16,11 @@ The redesigned kernels are also held at their geometry's edges:
 ``decode_attn`` at kv_len on and beside its tile and span edges for G 1-48
 and D 16-128, ``classify_fused`` on the conformance draws (drawn with the
 port's own models) and on blocks of one, all, an empty and an out-of-range
-version, ``tcam_match`` and ``svm_lookup`` at B 1, B just past a block's
-packets, T 3 and 33, H 1 and 16, and ``tcam_match`` on rows of length 0,
-1, 8, 9 and E (hit at the last valid entry, no hit, shift 31 and 32).
+version, the four staged kernels at B 1, B just past a block's packets,
+T 1, 3 and 33, H 1 and 16, L 13, P 1 and 9, C 33, and ``tcam_match`` on
+rows of length 0, 1, 8, 9 and E (hit at the last valid entry, no hit,
+shift 31 and 32).  ``decode_attn`` also runs on two streams at once, its
+launches of both in flight together.
 """
 import dataclasses
 
@@ -173,14 +175,21 @@ def _launched(fn, call):
 
 
 # the staged kernels' geometry edges: B 1; B just past a block's packets
-# (tcam_match: 4 at 8 trees, 10 at 3; svm_lookup: 8); T 3 and T 33 (a
-# group walks more than one tree); H 1 and H at svm_lookup.MAX_H (16)
+# (tcam_match: 4 at 8 trees, 10 at 3; svm_lookup: 8; tree_walk and
+# forest_vote: 2 at 8 trees from B 528 on, 6 at 3 from B 1584, 16 at 1 from
+# B 4224); T 1, 3 and T 33 (a group walks more than one tree); H 1 and H at
+# svm_lookup.MAX_H (16); L 13 (two chunks of the walk's 8 layers, the last
+# part-filled); P 9 and P 1 (the leaf search's rounds); C 33 (two chunks of
+# the vote's classes)
 STAGE_EDGES = [
     (1, 8, 128, 60, 4, 32, 256, 32, 12, 256, (3,)),
     (5, 8, 128, 60, 4, 32, 256, 32, 16, 256, ()),
     (11, 3, 20, 10, 2, 4, 16, 4, 1, 16, ()),
     (9, 8, 9, 60, 2, 3, 16, 4, 16, 256, (1,)),
     (40, 33, 17, 13, 2, 3, 16, 4, 5, 32, ()),
+    (529, 8, 128, 60, 4, 13, 256, 32, 12, 256, (3,)),
+    (1585, 3, 20, 10, 2, 4, 9, 33, 1, 16, ()),
+    (4225, 1, 20, 10, 2, 13, 1, 4, 4, 16, ()),
 ]
 
 
@@ -505,6 +514,36 @@ def test_decode_attn_full_width_shapes(cuda, B, Hq, Hkv, D, S):
     assert n == 1
     torch.testing.assert_close(got.float(), decode_attn_plain(*ins).float(),
                                **ATTN_TOL_FULL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,D,S", [(16, 48, 1, 128, 4096),
+                                          (4, 16, 8, 128, 32768)])
+def test_decode_attn_on_two_streams_at_once(cuda, B, Hq, Hkv, D, S):
+    """Launches that split the cache, in flight together on two streams:
+    both streams sleep on the card while the host enqueues eight launches
+    on each, alternating, in a loop.  Each stream counts its span blocks'
+    arrivals on its own counters, so every output equals the plain version
+    within one bf16 ulp."""
+    assert attn_module.plan(B, Hq, Hkv, D, S, torch.bfloat16).n_split > 1
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    ins = [attn_case(cuda, B, Hq, Hkv, D, S, torch.bfloat16, seed=seed)
+           for seed in (0, 1)]
+    want = [decode_attn_plain(*x) for x in ins]
+    torch.cuda.synchronize()
+    for _ in range(4):
+        outs = [[], []]
+        for s in streams:
+            with torch.cuda.stream(s):
+                torch.cuda._sleep(20_000_000)   # ~10 ms: the host enqueues
+        for _ in range(8):
+            for i, s in enumerate(streams):
+                with torch.cuda.stream(s):
+                    outs[i].append(decode_attn(*ins[i]))
+        torch.cuda.synchronize()
+        for got, w in zip(outs, want):
+            for o in got:
+                torch.testing.assert_close(o.float(), w.float(),
+                                           **ATTN_TOL_FULL[torch.bfloat16])
 
 
 def _classify_one(ops_, codes, feats, vid, shift, C):

@@ -20,17 +20,36 @@ E with a hit at the last valid entry, no hit, matching records past the
 row's end and shifts 31 and 32.  ``svm_lookup`` splits a packet's features
 into slices over the lanes of a group and merges their uint32 sums;
 ``split_svm_model`` does the same at any slice count and in any merge
-order, held bit for bit to the twins with sums that wrap past 2^31.  All
-of these are integer results, so every comparison is exact.
+order, held bit for bit to the twins with sums that wrap past 2^31.
+
+``tree_walk`` and ``classify_fused`` walk with ``acorn::walk_pair``: a warp
+of four (packet, tree) pairs, 8 lanes each, takes the layers in chunks of
+8, skips the layers its ballot finds empty for all its pairs, loads the
+next layer's first records ahead, and takes further rounds for rows longer
+than 8.  ``layer_chunk_walk_model`` is that walk in torch, held to both
+twins and to the Pallas kernel in interpret mode on the
+``tests/test_kernels.py`` sweep (warps mixing versions and empty slots),
+and on edge rows: L 13, T 33, rows of length 0, 1, GL, GL + 1 and E with
+the hit at the last valid entry, shifts 31 and 32.  ``forest_vote`` and
+``classify_fused`` search a tree's leaves with ``acorn::leaf_label_group``
+(a GL-ary lower bound: ``group_leaf_model``, held to searchsorted's left
+position in unsigned order) and vote with ``acorn::vote_warp`` (a lane a
+class, the trees' weights passed by shuffle, a butterfly argmax:
+``lane_vote_model``, held bit for bit to the twins with T and C past 32
+and exact ties).  All of these are integer results or f32 sums in the
+twins' order, so every comparison is exact.
 
 The geometry functions (``decode_attn.plan``,
 ``classify_fused.packets_per_block``, ``tcam_match.geometry``,
-``svm_lookup.geometry``) are plain Python: at the timed shapes the grid
+``svm_lookup.geometry``, ``tree_walk.geometry``,
+``forest_vote.geometry``) are plain Python: at the timed shapes the grid
 holds at least two blocks (or waves) on each of 132 SMs, the last round of
 blocks fills at least half the SMs, no span starts past the cache, shared
-memory stays within what a block may take (227 KB, 48 KB for the fused
-classify kernel's static limit; the two staged kernels take none), and an
-H above the SVM kernel's maximum is refused.
+memory stays within what a block may take (227 KB, 48 KB for the classify
+kernels' static limit; tcam_match and svm_lookup take none), every lane
+group of tree_walk and forest_vote has a pair where the batch allows it,
+and an H above the SVM kernel's maximum is refused.  ``decode_attn``'s
+arrival counters are kept per (device, stream).
 """
 import numpy as np
 import pytest
@@ -40,10 +59,13 @@ import jax.numpy as jnp
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core.packets import u32_bits, u32_from_bits
+from repro_torch.kernels import decode_attn as attn_module
+from repro_torch.kernels import forest_vote as vote_module
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import svm_lookup as svm_module
 from repro_torch.kernels import tcam_match as tcam_module
 from repro_torch.kernels import tiling
+from repro_torch.kernels import tree_walk as walk_module
 from repro_torch.kernels import classify_fused as cf_module
 from repro_torch.kernels.classify_fused import packets_per_block
 from repro_torch.kernels.decode_attn import (
@@ -559,3 +581,497 @@ def test_lut_operands_carry_lut_fh():
     img = tiling.ClassifyFusedOperands(*([None] * 5), ops_.lut, ops_.bias,
                                        ops_.lut_fh)
     assert all(a is b for a, b in zip(img.svm, ops_))
+
+
+# ------------------------------- tree_walk: lane groups over all the layers
+WGL = walk_module.LANES
+NO_MATCH_REC = (0, -1, 1 << 16, 0)   # acorn::no_match(): range [1, 0]
+
+
+def _u32(x):
+    """int32 bit patterns -> their uint32 values, as int64."""
+    return x.long() & 0xFFFFFFFF
+
+
+def _matches(rec, code, feats):
+    """acorn::record_matches for records [N, k, 4] of packets with codes
+    [N] (uint32 values) and feature rows [N, F]."""
+    x, y, z, w = rec.long().unbind(-1)
+    fid = ((z << 48) >> 48).clamp(min=0)
+    f = torch.gather(feats.long(), 1, fid)
+    in_range = (f >= (z >> 16)) & (f <= ((w << 48) >> 48))
+    return in_range & ((code[:, None] & _u32(y)) == _u32(x))
+
+
+def layer_chunk_walk_model(codes, features, vid, layer_shift, ops,
+                           lanes=WGL, packets=None):
+    """``acorn::walk_pair`` in torch, over every (packet, tree) pair: the
+    row lengths staged per packet (0 off the zoo, so such a packet's codes
+    pass through); a warp of 32 / lanes consecutive pairs of a block of
+    ``packets`` packets (all B by default); per chunk of ``lanes`` layers,
+    the layers the warp's ballot finds non-empty for any of its pairs, in
+    order, each pair's first GL records of the next such layer loaded
+    ahead (before this layer is compared); a round's first hit is its
+    lowest lane, further rounds of GL records while the pair has none and
+    entries remain; the first hit's set bit sets the layer's bit (none for
+    a shift outside [0, 32))."""
+    V, L, T, E, _ = ops.entries.shape
+    B = codes.shape[0]
+    ok = (vid >= 0) & (vid < V)
+    v = torch.where(ok, vid, 0).long()
+    n = torch.where(ok[:, None, None], ops.n_entries[v], 0)   # s_n [B, L, T]
+    n = n.permute(0, 2, 1).reshape(B * T, L).long()           # per pair
+    rec = ops.entries[v].permute(0, 2, 1, 3, 4).reshape(B * T, L, E, 4)
+    feats = features.repeat_interleave(T, dim=0)              # per pair
+    code = _u32(codes.reshape(-1))
+    bits = [1 << s if 0 <= s < 32 else 0 for s in layer_shift.tolist()]
+    gpw = 32 // lanes
+    pb = packets or B
+    pair = torch.arange(B * T)
+    block = pair // (pb * T)
+    warp = block * (-(-pb * T // gpw)) + (pair - block * pb * T) // gpw
+    none = torch.tensor(NO_MATCH_REC, dtype=torch.int32)
+
+    def first_round(l):
+        e = torch.arange(lanes)
+        got = rec[:, l, :lanes] if E >= lanes else torch.cat(
+            [rec[:, l], none.expand(B * T, lanes - E, 4)], 1)
+        return torch.where((e < n[:, l, None])[..., None], got, none)
+
+    for l0 in range(0, L, lanes):
+        chunk = range(l0, min(l0 + lanes, L))
+        has = torch.zeros((int(warp.max()) + 1, L), dtype=torch.bool)
+        has.index_put_((warp,), n > 0, accumulate=True)       # the ballot
+        todo = [l for l in chunk if bool(has[:, l].any())]
+        ahead = first_round(todo[0]) if todo else None
+        for i, l in enumerate(todo):
+            take = has[warp, l]            # the pair's warp walks layer l
+            cur = ahead
+            if i + 1 < len(todo):
+                ahead = first_round(todo[i + 1])
+            hit = _matches(cur, code, feats)
+            mine = hit.any(-1)
+            first = hit.int().argmax(-1, keepdim=True)
+            sets = (torch.gather(cur[..., 3].long(), 1, first)[:, 0] >> 16) & 1
+            for e0 in range(lanes, E, lanes):
+                e = torch.arange(e0, min(e0 + lanes, E))
+                r = torch.where((~mine[:, None] & (e < n[:, l, None]))[..., None],
+                                rec[:, l, e], none)
+                more = _matches(r, code, feats)
+                new = ~mine & more.any(-1)
+                at = more.int().argmax(-1, keepdim=True)
+                more_set = (torch.gather(r[..., 3].long(), 1, at)[:, 0]
+                            >> 16) & 1
+                sets = torch.where(new, more_set, sets)
+                mine |= new
+            code = torch.where(take & mine & (sets == 1), code | bits[l],
+                               code)
+    out = torch.where(code >= 2**31, code - 2**32, code).to(torch.int32)
+    return out.reshape(B, T)
+
+
+# (B, T, E, F, V, L, empty): tests/test_kernels.py:84's tree-walk sweep
+WALK_SWEEP = [(7, 1, 3, 4, 1, 1, ()), (64, 4, 17, 13, 3, 5, ()),
+              (300, 2, 130, 20, 2, 3, ()), (257, 3, 33, 46, 4, 8, (1, 3)),
+              (33, 5, 64, 60, 1, 32, ())]
+
+
+def _walk_args(case, seed):
+    B, T, E, F, V, L, empty = case
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 2**12, (B, T)).astype(np.uint32)
+    feats = rng.integers(0, 256, (B, F)).astype(np.int32)
+    vid = rng.integers(0, V, B).astype(np.int32)
+    tables = [np.asarray(a) for a in _rand_tcam_v(rng, B, T, E, F, V, L=L,
+                                                  empty_slots=empty)]
+    shift = rng.permutation(L).astype(np.int32)
+    return codes, feats, vid, tables, shift
+
+
+def _walk_tables(tables):
+    return [u32_bits(a) if a.dtype == np.uint32 else torch.from_numpy(a.copy())
+            for a in tables]
+
+
+@pytest.mark.parametrize("lanes,packets", [(WGL, None), (WGL, 2), (WGL, 3),
+                                           (4, 1), (32, 5)])
+@pytest.mark.parametrize("case", WALK_SWEEP)
+def test_layer_chunk_walk_model_matches_twins_and_pallas(case, lanes,
+                                                         packets):
+    """The chunked lane-group walk (at the kernel's GL and blocks of 2
+    packets, and at other widths and blocks: neither can change a first
+    match) equals the port's twin, the JAX oracle and the Pallas kernel in
+    interpret mode; warps mix pairs of different versions and empty
+    slots."""
+    codes, feats, vid, tables, shift = _walk_args(case, sum(case[:6]))
+    F = feats.shape[1]
+    tt = _walk_tables(tables)
+    ops_ = tiling.prep_walk(*tt, F)
+    tc, tf, tv = u32_bits(codes), torch.from_numpy(feats), \
+        torch.from_numpy(vid)
+    ts = torch.from_numpy(shift)
+    got = layer_chunk_walk_model(tc, tf, tv, ts, ops_, lanes, packets)
+    jargs = (jnp.asarray(codes), jnp.asarray(feats), jnp.asarray(vid),
+             *(jnp.asarray(a) for a in tables), jnp.asarray(shift))
+    want = np.asarray(jref.tree_walk_v(*jargs))
+    np.testing.assert_array_equal(u32_from_bits(got), want)
+    np.testing.assert_array_equal(u32_from_bits(
+        tref.tree_walk_v(tc, tf, tv, *tt, ts)), want)
+    if (lanes, packets) == (WGL, None):
+        np.testing.assert_array_equal(
+            np.asarray(jops.tree_walk_v(*jargs, mode="interpret")), want)
+        assert torch.equal(walk_module.tree_walk(tc, tf, tv, ts, ops_), got)
+
+
+def walk_edge_rows(V=2, L=13, T=33, E=20, F=4):
+    """Edge rows over every layer: rows of length 0, 1, GL, GL + 1 and E,
+    each with a hit at its last valid entry or with none (every record
+    past a row's length would match), cycling over (version, layer, tree);
+    layer 4 empty for every tree of version 0 (the warps skip it), layer 9
+    empty for trees 0-3 only.  Records test the code's low 3 bits and the
+    layers set bits 3 and up, so every layer sees the same matches.  Bit
+    shifts include 31 (the sign bit of the int32 codes) and 32 (sets
+    nothing).  Packets: code 0b101, features 5, vids 0, 1, -1 and V."""
+    lengths = (0, 1, WGL, WGL + 1, E)
+    rec = torch.zeros((V, L, T, E, 4), dtype=torch.int32)
+    rec[..., 0] = 0b010                                  # value: no match
+    rec[..., 1] = 0b111                                  # mask
+    rec[..., 2] = 5 << 16                                # fid 0, f_lo 5
+    rec[..., 3] = 5 | (1 << 16)                          # f_hi 5, set_bit 1
+    n = torch.zeros((V, L, T), dtype=torch.int32)
+    k = 0
+    for v in range(V):
+        for l in range(L):
+            for t in range(T):
+                k += 1
+                if (v == 0 and l == 4) or (l == 9 and t < 4):
+                    continue
+                length = lengths[k % len(lengths)]
+                n[v, l, t] = length
+                rec[v, l, t, length:, 0] = 0b101         # past n: would match
+                if length and k % 3:
+                    rec[v, l, t, length - 1, 0] = 0b101  # hit at the last
+                    rec[v, l, t, length - 1, 3] = 5 | ((k % 2) << 16)
+    ops_ = tiling.WalkOperands(rec.contiguous(), n)
+    shift = torch.tensor([3, 31, 7, 32, 4, 30, 5, 6, 8, 9, 29, 10, 11][:L],
+                         dtype=torch.int32)
+    codes = torch.full((4, T), 0b101, dtype=torch.int32)
+    feats = torch.full((4, F), 5, dtype=torch.int32)
+    vid = torch.tensor([0, 1, -1, V], dtype=torch.int32)
+    return codes, feats, vid, shift, ops_
+
+
+@pytest.mark.parametrize("T", [33, 5])
+def test_layer_chunk_walk_model_on_edge_rows(T):
+    """L 13 (a second chunk part-filled), T 33 and 5, rows of length 0, 1,
+    GL, GL + 1 and E with the hit at the last valid entry, a layer empty
+    for a whole version and one for some trees, shifts 31 and 32: the model
+    equals the port's twin, the JAX oracle and Pallas in interpret mode (on
+    the in-zoo packets: the oracle clamps a vid outside [0, V)), and a vid
+    outside [0, V) passes its codes through."""
+    codes, feats, vid, shift, ops_ = walk_edge_rows(T=T)
+    got = layer_chunk_walk_model(codes, feats, vid, shift, ops_)
+    tables = tiling.unpack_walk(ops_)
+    assert torch.equal(tref.tree_walk_v(codes, feats, vid, *tables, shift),
+                       got)
+    assert torch.equal(walk_module.tree_walk(codes, feats, vid, shift, ops_),
+                       got)
+    assert torch.equal(got[2:], codes[2:])
+    assert (got[:2] != codes[:2]).any()
+    jt = [jnp.asarray(u32_from_bits(a)) if i in (0, 1) else
+          jnp.asarray(a.numpy().astype(np.uint32)) if i == 5 else
+          jnp.asarray(a.numpy()) for i, a in enumerate(tables)]
+    jargs = (jnp.asarray(u32_from_bits(codes[:2])),
+             jnp.asarray(feats[:2].numpy()), jnp.asarray(vid[:2].numpy()),
+             *jt, jnp.asarray(shift.numpy()))
+    want = np.asarray(jref.tree_walk_v(*jargs))
+    np.testing.assert_array_equal(u32_from_bits(got[:2]), want)
+    np.testing.assert_array_equal(
+        np.asarray(jops.tree_walk_v(*jargs, mode="interpret")), want)
+
+
+# -------------------------- forest_vote: the group leaf search and the vote
+def group_leaf_model(pc, codes, lanes=WGL):
+    """``acorn::leaf_label_group``'s search in torch: the lower bound of
+    each code (uint32 values, [N]) over its sorted leaf codes ([N, P],
+    uint32 values), by rounds of ``lanes`` probes at a stride of
+    ceil(P / lanes), then ceil(stride / lanes), ... down to 1; a round's
+    count of probes below the code (a popcount of the ballot) moves the
+    low end, the first probe not below it bounds the high end.  Returns
+    the positions [N]."""
+    N, P = pc.shape
+    lo = torch.zeros(N, dtype=torch.long)
+    hi = torch.full((N,), P, dtype=torch.long)
+    step = -(-P // lanes)
+    while True:
+        idx = lo[:, None] + torch.arange(1, lanes + 1) * step - 1
+        below = (idx < hi[:, None]) & (torch.gather(
+            pc, 1, idx.clamp(max=P - 1)) < codes[:, None])
+        lo = lo + below.sum(-1) * step
+        hi = torch.minimum(hi, lo + step - 1)
+        if step == 1:
+            return lo
+        step = -(-step // lanes)
+
+
+def lane_vote_model(lab, w, n_classes):
+    """``acorn::vote_warp`` in numpy float32, for packets' per-tree labels
+    [N, T] and weights [N, T]: lane i takes classes i, 32 + i, ...; each
+    score summed in tree order, tree t's weight passed from the lane that
+    loaded it (lane t % 32 of chunk t // 32); the lane keeps its first best
+    class; then the xor butterfly over 16, 8, 4, 2, 1, where the higher
+    score wins and a tie goes to the smaller class.  Returns every lane's
+    class [N, 32] (all equal)."""
+    N, T = lab.shape
+    lane = np.arange(32)
+    best = np.full((N, 32), -np.inf, np.float32)
+    best_c = np.zeros((N, 32), np.int64)
+    for c0 in range(0, n_classes, 32):
+        c = c0 + lane
+        score = np.zeros((N, 32), np.float32)
+        for t0 in range(0, T, 32):
+            wl = np.where(t0 + lane < T, w[:, np.minimum(t0 + lane, T - 1)],
+                          np.float32(0))
+            for t in range(min(32, T - t0)):
+                wt = wl[:, t:t + 1]                        # the shuffle
+                score = np.where(lab[:, t0 + t, None] == c, score + wt,
+                                 score).astype(np.float32)
+        upd = (c < n_classes) & (score > best)
+        best = np.where(upd, score, best)
+        best_c = np.where(upd, c, best_c)
+    for off in (16, 8, 4, 2, 1):
+        ob, oc = best[:, lane ^ off], best_c[:, lane ^ off]
+        take = (ob > best) | ((ob == best) & (oc < best_c))
+        best, best_c = np.where(take, ob, best), np.where(take, oc, best_c)
+    return best_c
+
+
+def forest_vote_model(codes, vid, ops, n_classes, lanes=WGL):
+    """The kernel in torch: ``group_leaf_model`` per (packet, tree), the
+    label at an exact match, ``lane_vote_model`` per packet; label 0 and
+    per-tree 0 for a vid outside [0, V)."""
+    V, T, P = ops.pred_codes.shape
+    B = codes.shape[0]
+    ok = (vid >= 0) & (vid < V)
+    v = torch.where(ok, vid, 0).long()
+    pc = _u32(ops.pred_codes[v].reshape(B * T, P))
+    c = _u32(codes.reshape(-1))
+    pos = group_leaf_model(pc, c, lanes).clamp(max=P - 1)
+    hit = torch.gather(pc, 1, pos[:, None])[:, 0] == c
+    label = torch.where(hit, torch.gather(
+        ops.pred_labels[v].reshape(B * T, P), 1, pos[:, None])[:, 0], 0)
+    per_tree = torch.where(ok[:, None], label.reshape(B, T), 0)
+    lanes_c = lane_vote_model(per_tree.numpy(), ops.weights[v].numpy(),
+                              n_classes)
+    assert (lanes_c == lanes_c[:, :1]).all()
+    vote = torch.from_numpy(lanes_c[:, 0]).to(torch.int32)
+    return torch.where(ok, vote, 0), per_tree.to(torch.int32)
+
+
+def _sorted_leaves(rng, P, n, top=2**32):
+    """n rows of P distinct sorted uint32 leaf codes below ``top``, as
+    int64 values."""
+    return torch.from_numpy(np.sort(np.stack([
+        rng.choice(top, size=P, replace=False) for _ in range(n)]), axis=1)
+        .astype(np.int64))
+
+
+@pytest.mark.parametrize("P", [1, 2, 7, 8, 9, 63, 64, 65, 256])
+def test_group_leaf_model_finds_searchsorted_left(P):
+    """For leaves spread over all of uint32 (at and above 2^31 too): codes
+    below the first leaf, above the last, equal to the first, the last and
+    each leaf, one past and one before each leaf, and 0, 2^31 - 1, 2^31
+    and 2^32 - 1; the GL-ary search finds torch.searchsorted's left
+    position in unsigned order, at the kernel's GL and at 2 and 32 lanes."""
+    rng = np.random.default_rng(P)
+    pc = _sorted_leaves(rng, P, 6)
+    pc[0] = torch.arange(2**31 - P // 2, 2**31 - P // 2 + P)  # around 2^31
+    rows, codes = [], []
+    for i in range(pc.shape[0]):
+        row = pc[i]
+        want = [row[0] - 1, row[-1] + 1, 0, 2**31 - 1, 2**31, 2**32 - 1]
+        want += row.tolist() + (row + 1).tolist() + (row - 1).tolist()
+        want = [x for x in want if 0 <= x < 2**32]
+        rows += [i] * len(want)
+        codes += want
+    rows = torch.tensor(rows)
+    codes = torch.tensor(codes, dtype=torch.int64)
+    want = torch.searchsorted(pc[rows], codes[:, None])[:, 0]
+    for lanes in (WGL, 2, 32):
+        assert torch.equal(group_leaf_model(pc[rows], codes, lanes), want)
+    np.testing.assert_array_equal(
+        want.numpy(), [np.searchsorted(pc[r].numpy().astype(np.uint32),
+                                       np.uint32(c)) for r, c in
+                       zip(rows.tolist(), codes.tolist())])
+
+
+def _vote_ops(rng, V, T, P, C, top=2**16):
+    pc = np.sort(rng.choice(top, size=V * T * P, replace=False)
+                 .reshape(V, T, P), axis=2).astype(np.uint32)
+    plab = rng.integers(0, C, (V, T, P)).astype(np.int32)
+    pv = rng.random((V, T, P)) < 0.9
+    w = rng.random((V, T)).astype(np.float32)
+    return pc, plab, pv, w
+
+
+def _leaf_hits(rng, pc, vid, miss=0.25):
+    """Codes [B, T] that hit a leaf of their packet's version, a quarter
+    of them missing (a code past every leaf or between two)."""
+    V, T, P = pc.shape
+    B = vid.shape[0]
+    v = np.clip(vid, 0, V - 1)
+    codes = pc[v[:, None], np.arange(T)[None, :], rng.integers(0, P, (B, T))]
+    gone = rng.random((B, T)) < miss
+    return np.where(gone, codes + np.uint32(1), codes).astype(np.uint32)
+
+
+# (B, T, P, C, V): tests/test_kernels.py:46's V=1 sweep and :144's V=3 case
+VOTE_SWEEP = [(9, 1, 4, 2, 1), (70, 4, 32, 5, 1), (300, 8, 256, 25, 1),
+              (70, 3, 32, 5, 3)]
+
+
+@pytest.mark.parametrize("case", VOTE_SWEEP)
+def test_forest_vote_model_matches_twins_and_pallas(case):
+    """The group search and the lane vote equal the port's twin, the JAX
+    oracle and the Pallas kernel in interpret mode."""
+    B, T, P, C, V = case
+    rng = np.random.default_rng(B + P)
+    pc, plab, pv, w = _vote_ops(rng, V, T, P, C)
+    vid = rng.integers(0, V, B).astype(np.int32)
+    codes = _leaf_hits(rng, pc, vid)
+    jargs = (jnp.asarray(codes), jnp.asarray(vid), jnp.asarray(pc),
+             jnp.asarray(plab), jnp.asarray(pv), jnp.asarray(w))
+    want = jref.forest_predict_vote_v(*jargs, C)
+    pallas = jops.forest_predict_vote_v(*jargs, C, mode="interpret")
+    targs = (u32_bits(codes), torch.from_numpy(vid), u32_bits(pc),
+             torch.from_numpy(plab), torch.from_numpy(pv),
+             torch.from_numpy(w))
+    ops_ = tiling.prep_leaves(*targs[2:])
+    got = forest_vote_model(targs[0], targs[1], ops_, C)
+    twin = tref.forest_predict_vote_v(*targs, C)
+    for g, tw_, wa, pa in zip(got, twin, want, pallas):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(wa))
+        np.testing.assert_array_equal(tw_.numpy(), np.asarray(wa))
+        np.testing.assert_array_equal(np.asarray(pa), np.asarray(wa))
+    for g, p in zip(got, vote_module.forest_vote(targs[0], targs[1], ops_,
+                                                 C)):
+        assert torch.equal(g, p)
+
+
+@pytest.mark.parametrize("T,C", [(40, 40), (33, 70), (8, 33), (64, 3)])
+def test_lane_vote_model_with_ties_past_a_warp(T, C):
+    """T and C past 32 (a second chunk of trees and of classes) and exact
+    ties: weights in quarters, so many scores tie exactly; held bit for bit
+    to the port's twin and the JAX oracle, and to Pallas in interpret mode;
+    a vid outside [0, V) gives label 0 and per-tree 0 (port twin)."""
+    rng = np.random.default_rng(T * C)
+    V, P, B = 2, 16, 96
+    pc, plab, pv, _ = _vote_ops(rng, V, T, P, C)
+    pv[:] = True
+    w = (rng.integers(1, 4, (V, T)) / 4).astype(np.float32)
+    vid = rng.integers(0, V, B).astype(np.int32)
+    codes = _leaf_hits(rng, pc, vid, miss=0.1)
+    jargs = (jnp.asarray(codes), jnp.asarray(vid), jnp.asarray(pc),
+             jnp.asarray(plab), jnp.asarray(pv), jnp.asarray(w))
+    want = jref.forest_predict_vote_v(*jargs, C)
+    targs = (u32_bits(codes), torch.from_numpy(vid), u32_bits(pc),
+             torch.from_numpy(plab), torch.from_numpy(pv),
+             torch.from_numpy(w))
+    ops_ = tiling.prep_leaves(*targs[2:])
+    got = forest_vote_model(targs[0], targs[1], ops_, C)
+    for g, wa in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(wa))
+    for g, p in zip(got, jops.forest_predict_vote_v(*jargs, C,
+                                                    mode="interpret")):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(p))
+    # the ties really happen, and go to the smaller class
+    lab = got[1].numpy()
+    wv = w[vid]
+    scores = np.stack([(np.where(lab == c, wv, 0)).sum(1) for c in range(C)],
+                      1)
+    tied = (scores == scores.max(1, keepdims=True)).sum(1) > 1
+    assert tied.any()
+    np.testing.assert_array_equal(got[0].numpy()[tied],
+                                  scores[tied].argmax(1))
+    bad = torch.tensor([-1, V, V + 7] * 4, dtype=torch.int32)
+    out = forest_vote_model(targs[0][:12], bad, ops_, C)
+    twin = tref.forest_predict_vote_v(targs[0][:12], bad, *targs[2:], C)
+    for g, tw_ in zip(out, twin):
+        assert torch.equal(g, tw_) and not g.any()
+
+
+# --------------------------------------------- the two new geometries
+@pytest.mark.parametrize("B,T,F,L", [(4096, 8, 60, 32), (4097, 8, 60, 32),
+                                     (1, 8, 60, 32), (529, 8, 60, 13),
+                                     (1585, 3, 10, 4), (4225, 1, 60, 13),
+                                     (40, 33, 13, 3), (100_000, 8, 60, 32)])
+def test_tree_walk_geometry(B, T, F, L):
+    """Every lane group has a pair where the batch allows it, the grid
+    holds at least two blocks on each of 132 SMs (one packet a block below
+    that), shared memory within 48 KB; at the zoo's B 4096, 2 packets a
+    block, 2048 blocks of 128 threads, 1268 bytes a packet."""
+    g = walk_module.geometry(B, T, F, L)
+    groups = g.threads // WGL
+    assert g.packets >= 1 and g.blocks == -(-B // g.packets)
+    assert g.smem == (g.packets * (F + 1 + L * T) + L) * 4 <= 48 * 1024
+    assert (g.packets - 1) * T < groups
+    if B >= 2 * SMS * -(-groups // T):
+        assert g.packets * T >= groups
+    if g.packets > 1:
+        assert g.blocks >= 2 * SMS
+    if (B, T, F, L) == (4096, 8, 60, 32):
+        assert (g.packets, g.blocks, g.threads) == (2, 2048, 128)
+        assert g.smem - L * 4 == 2 * 1268
+
+
+def test_tree_walk_geometry_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="tree"):
+        walk_module.geometry(4, 0, 60, 32)
+    with pytest.raises(ValueError, match="shared memory"):
+        walk_module.geometry(4, 400, 60, 32)
+
+
+@pytest.mark.parametrize("B,T", [(4096, 8), (4097, 8), (1, 8), (529, 8),
+                                 (1585, 3), (4225, 1), (40, 33), (7, 100)])
+def test_forest_vote_geometry(B, T):
+    """Every lane group has a pair where the batch allows it, at least two
+    blocks on each of 132 SMs, the labels within 48 KB; at the zoo's B
+    4096, 2 packets a block, 2048 blocks of 128 threads."""
+    g = vote_module.geometry(B, T)
+    groups = g.threads // vote_module.LANES
+    assert g.packets >= 1 and g.blocks == -(-B // g.packets)
+    assert g.smem == g.packets * T * 4 <= 48 * 1024
+    assert (g.packets - 1) * T < groups
+    if B >= 2 * SMS * -(-groups // T):
+        assert g.packets * T >= groups
+    if g.packets > 1:
+        assert g.blocks >= 2 * SMS
+    if (B, T) == (4096, 8):
+        assert (g.packets, g.blocks, g.threads) == (2, 2048, 128)
+
+
+def test_forest_vote_geometry_refuses_no_trees():
+    with pytest.raises(ValueError, match="tree"):
+        vote_module.geometry(4, 0)
+
+
+# ------------------------------- decode_attn: arrival counters per stream
+def test_decode_attn_counters_are_kept_per_device_and_stream(monkeypatch):
+    """Distinct (device, stream) keys get distinct zeroed counters, the
+    same key the same tensor; growing one key's counters leaves the other
+    keys' tensors as they were."""
+    monkeypatch.setattr(attn_module, "_COUNTERS", {})
+    cpu = torch.device("cpu")
+    a = attn_module._counters(cpu, 11, 5)
+    b = attn_module._counters(cpu, 22, 5)
+    assert a is not b and a.data_ptr() != b.data_ptr()
+    for c in (a, b):
+        assert c.dtype == torch.int32 and c.numel() >= 5 and not c.any()
+    assert attn_module._counters(cpu, 11, 7) is a
+    assert attn_module._counters(torch.device("meta"), 11, 5) is not a
+    big = attn_module._counters(cpu, 22, a.numel() + 1)
+    assert big is not b and big.numel() > a.numel() and not big.any()
+    assert attn_module._counters(cpu, 22, 3) is big
+    assert attn_module._counters(cpu, 11, 3) is a
+    assert set(attn_module._COUNTERS) == {(cpu, 11), (cpu, 22),
+                                          (torch.device("meta"), 11)}
