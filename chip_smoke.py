@@ -81,20 +81,51 @@ JAX package.  Phases, each fatal on failure:
              kernel's registers and shared memory; the card's
              floor per launch (``launch_floor_ms``: an empty kernel at
              ``tcam_match``'s grid, at ``forest_vote``'s and at one block,
-             launched and timed the same way).
+             launched and timed the same way).  Every classify step twice:
+             through the graph path (the executors' default: a captured
+             CUDA graph per admission bucket) and through executors built
+             with ``graphs=False``; per step the wall time, requests/s,
+             busy time and ``cudaLaunchKernel`` / ``cudaMemcpyAsync`` /
+             ``cudaGraphLaunch`` calls under the profiler, the fused step
+             taken apart on the host clock, and one in-place slot install
+             and evict in ms.
+10. graphs — the graph path held on the card: replay == eager ==
+             ``SwitchEngine(mode="ref")`` on rslt, codes and svm_acc for
+             all 204 conformance draws (``repro_torch.data.conformance``)
+             in the fused, unfused and layerwise modes, every draw a replay
+             of a warmed bucket with exactly the mode's launches; the same
+             for the planned path (fused, layerwise) at B 4096 and B 1, 7,
+             63, 64, 65, 4095; one replay under the profiler runs exactly
+             the mode's kernels (x hops) and one ``cudaGraphLaunch``;
+             install, evict, evict, reinstall between replays show in the
+             next replay with no resident ``data_ptr`` moved and no entry
+             added; ``cache_size()`` == the warmed ladder's length and
+             ragged replays add nothing; two threads replaying at once;
+             ``--capture-failure`` as a child process must exit nonzero
+             (beside it, ``ncu``'s attempt for phase 9).
+11. fronts — ``AsyncZooServer`` and ``ContinuousZooServer`` bit-identical
+             to the sync classify on the zoo's traffic (1-64-packet
+             requests); the closed-loop rate of ``ContinuousZooServer``
+             (n_slots 2, 64 clients); ``open_loop`` (Poisson) at 0.25-1.0
+             of that rate, each load with the server's own split, a
+             dispatch's steps on its thread, the event loop's lag and the
+             garbage collector's pauses.
 
-Each main path (5, 6, 7, 8) runs with every kernel's launch count set to 0
-just before it and read just after; a kernel of the path that never
-launched fails the run.  Output: a ``paths`` JSON line, a ``kernels`` JSON
-line (with ``launch_floor_ms``), the card's name and power limit, and last
+Each main path (5, 6, 7, 8, 11) runs with every kernel's launch count set
+to 0 just before it and read just after; a kernel of the path that never
+launched fails the run.  A replayed graph adds the launches its capture
+counted.  Output: a ``paths`` JSON line, a ``kernels`` JSON line (with
+``launch_floor_ms``), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  ``--two-streams`` runs only phase 4's
-two-stream check, against the sources beside the script.
+two-stream check, against the sources beside the script;
+``--capture-failure`` only phase 10's failing capture.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -117,6 +148,15 @@ REPLACES = {                     # the TPU kernel each CUDA kernel replaces
     "decode_attn": "src/repro/kernels/decode_attn.py:82",
 }
 BF16_FLOPS_PER_S = 989e12        # H100 SXM data sheet, dense tensor cores
+MODES = (None, "unfused", "layerwise")   # the classify modes of the paths
+RAGGED = (1, 7, 63, 64, 65, 4095)        # ragged sizes replayed in phase 10
+KERNEL_FN = {                    # each wrapper's __global__ function
+    "classify_fused": "classify_fused_kernel", "tree_walk": "tree_walk_kernel",
+    "tcam_match": "tcam_match_kernel", "forest_vote": "forest_vote_kernel",
+    "svm_lookup": "svm_lookup_kernel", "decode_attn": "attn_"}
+LOADS = (0.25, 0.5, 0.75, 1.0)   # open-loop offered load / closed-loop rate
+LOAD_SECONDS = 2.0               # arrivals scheduled per offered load
+CLIENTS = 64                     # closed-loop clients of phase 11
 LM_ARCH = "internlm2-1.8b"
 LM_SERVE = dict(batch=16, prompt_len=64, gen=32, swaps=2)
 LM_CACHE = 4096                  # kv_len of the timed decode step
@@ -146,8 +186,16 @@ FORWARD_TOL = {"bf16 decode vs bf16 forward": (0.12, 0.05),
                "bf16 decode vs f32 forward": (0.12, 0.05)}
 
 
+T_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T_START:.1f} s)",
+          flush=True)
+
+
+def stamp(what: str) -> None:
+    print(f"   ({what} at {time.perf_counter() - T_START:.1f} s)", flush=True)
 
 
 def kernels():
@@ -1033,7 +1081,7 @@ def lm_timing(cfg, model, seed, torch, n_iter=50):
           f"({cfg.n_layers} x {bound:.5f} ms of attention + {weights:,} bytes "
           "of weights at 3.35 TB/s)")
     print(f"-- where the time goes, lm decode step at kv_len {T}")
-    busy_us = where_the_time_goes(step, torch, n=5)
+    busy_us = where_the_time_goes(step, torch, n=5)["busy_us"]
     print(f"device busy {busy_us:.1f} us per step = "
           f"{100 * busy_us / (step_s * 1e6):.1f}% of the unprofiled step")
     del state
@@ -1061,7 +1109,7 @@ def attn_timing(name, ins, torch, cyc, n_iter=50):
         raise AssertionError(f"decode_attn != its plain version at {name}")
     k_ms = ms(lambda: decode_attn(*ins), n_iter, torch, cyc)
     p_ms = ms(lambda: decode_attn_plain(*ins), max(n_iter // 10, 3), torch,
-              cyc)
+              cyc, attempts=1)
     k_ms2 = ms(lambda: decode_attn(*ins), n_iter, torch, cyc)
     try:
         lib, backend = sdpa_library(*ins, torch)
@@ -1204,22 +1252,21 @@ def where_the_time_goes(step, torch, n=10):
         print(f"top {what} (us per step, calls per step):")
         for e in sorted(rows, key=us, reverse=True)[:8]:
             print(f"  {us(e) / n:10.1f}  {e.count / n:6.1f}  {e.key[:70]}")
-    return busy / n
+    calls = {api: sum(e.count for e in events if e.key.startswith(api)) / n
+             for api in ("cudaLaunchKernel", "cudaMemcpyAsync",
+                         "cudaGraphLaunch")}
+    print("host API calls per step: " + ", ".join(
+        f"{k} {v:g}" for k, v in calls.items()))
+    return dict(busy_us=busy / n, wall_us=wall_us / n, **calls)
 
 
 NCU_METRICS = ("sm__warps_active.avg.pct_of_peak_sustained_active",
                "dram__throughput.avg.pct_of_peak_sustained_elapsed")
 
 
-def kernel_resources(libs, seed):
+def kernel_resources(libs):
     """Registers, spills and static shared memory of each function of the
-    redesigned kernels, from ``nvcc -Xptxas -v``; then ``ncu``'s achieved
-    occupancy and DRAM throughput for one launch of each at its timed shape
-    (this script's ``--ncu-probe``), where that tool is on the machine."""
-    import os
-    import shutil
-    import signal
-
+    redesigned kernels, from ``nvcc -Xptxas -v``."""
     for name in ("decode_attn", "classify_fused", "tcam_match",
                  "svm_lookup", "tree_walk", "forest_vote"):
         fn = None
@@ -1228,29 +1275,64 @@ def kernel_resources(libs, seed):
                 fn = line.split("'")[1]
             elif ("Used" in line or "spill" in line) and fn:
                 print(f"{name} {fn}: {line.split(':', 1)[-1].strip()}")
+
+
+@contextlib.contextmanager
+def child(args, timeout=300):
+    """This script run again as a child process with ``args``, started now
+    and left to run beside the caller's work; ``get()`` waits for it and
+    returns (exit code, output).  The child is killed on the way out
+    whatever happened."""
+    import os
+    import signal
+
+    proc = subprocess.Popen(args, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    t_end = time.perf_counter() + timeout
+
+    def get():
+        try:
+            out, err = proc.communicate(
+                timeout=max(t_end - time.perf_counter(), 1))
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            out, err = proc.communicate()
+            return None, out + err
+        return proc.returncode, (out, err)
+    try:
+        yield get
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+
+
+def ncu_args(seed):
+    """``ncu``'s achieved occupancy and DRAM throughput for one launch of
+    each redesigned kernel at its timed shape (this script's
+    ``--ncu-probe``), or None where that tool is not on the machine."""
+    import shutil
+
     ncu = shutil.which("ncu")
     if ncu is None:
-        print("ncu: not on this machine; occupancy and DRAM throughput not "
-              "measured")
+        return None
+    return [ncu, "--csv", "--metrics", ",".join(NCU_METRICS),
+            "--kernel-name", "regex:attn_bf16|classify_fused_kernel",
+            sys.executable, str(Path(__file__).resolve()), "--ncu-probe",
+            "--seed", str(seed)]
+
+
+def report_ncu(rc, out):
+    if rc is None:
+        print("ncu: timed out; not measured")
         return
-    cmd = [ncu, "--csv", "--metrics", ",".join(NCU_METRICS), "--kernel-name",
-           "regex:attn_bf16|classify_fused_kernel", sys.executable,
-           str(Path(__file__).resolve()), "--ncu-probe", "--seed", str(seed)]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True)
-    try:
-        out, _ = proc.communicate(timeout=240)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        print("ncu: timed out after 240 s; not measured")
-        return
+    out = "\n".join(out)
     rows = [line for line in out.splitlines()
             if any(m in line for m in NCU_METRICS)]
     if not rows:
         tail = " | ".join(out.strip().splitlines()[-3:])
-        print(f"ncu: no metrics (exit {proc.returncode}): {tail[:400]}")
+        print(f"ncu: no metrics (exit {rc}): {tail[:400]}")
         return
     for line in rows:
         cells = [c.strip('"') for c in line.split('","')]
@@ -1305,7 +1387,7 @@ LIBRARY_NONE = {
 }
 
 
-def ms(fn, n, torch, cycles_per_ms):
+def ms(fn, n, torch, cycles_per_ms, attempts=4):
     """Mean device ms per call of ``fn`` over ``n`` calls, by CUDA events.
 
     The device first sleeps for longer than the host takes to enqueue the
@@ -1314,7 +1396,9 @@ def ms(fn, n, torch, cycles_per_ms):
     cost shows end to end and in the profiler tables instead.  A run whose
     enqueue outlasted the sleep (the host slowed: the device waited for
     launches) is not kept: it is run again with twice the sleep, up to
-    four times, and the last run is kept with a warning."""
+    ``attempts`` times, and the last run is kept with a warning.  The plain
+    versions, which overflow the launch queue whatever the sleep, get one
+    attempt."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -1325,7 +1409,7 @@ def ms(fn, n, torch, cycles_per_ms):
     host_ms = (time.perf_counter() - t0) * 1e3
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    for attempt in range(4):
+    for attempt in range(attempts):
         sleep_ms = 1.5 * 2 ** attempt * host_ms + 0.5
         t0 = time.perf_counter()
         torch.cuda._sleep(int(sleep_ms * cycles_per_ms))
@@ -1339,8 +1423,8 @@ def ms(fn, n, torch, cycles_per_ms):
             break
     else:
         print(f"  timing: the host's enqueue ({enqueued_ms:.3f} ms) outlasted "
-              f"the card's sleep ({sleep_ms:.3f} ms) four times; the time "
-              "below includes the host's launch gaps")
+              f"the card's sleep ({sleep_ms:.3f} ms) {attempts} time(s); the "
+              "time below includes the host's launch gaps")
     return start.elapsed_time(end) / n
 
 
@@ -1389,7 +1473,59 @@ def svm_library(img, features, vid, lv, torch):
                                     per_sample_weights=w)
 
 
-def timing_phase(zoos, runtimes, pb, prof, torch, n_iter=50):
+def host_breakdown(name, zoo, X, mid, vid, torch, n=20):
+    """One ``ZooServer.classify`` taken apart, unprofiled, host clock: ms a
+    step building the request, admitting it (the pad, into pinned memory on
+    the graph path), the executor's classify (staging, replay and copy out,
+    or the eager launches: enqueued, not waited for) and the rslt's copy
+    back, which waits for the card."""
+    rt = zoo.runtime
+    parts = dict(request=0.0, admission=0.0, classify=0.0, result=0.0)
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pb = zoo.make_request(X, mid=mid, vid=vid)
+        t1 = time.perf_counter()
+        padded = rt.admit(pb)
+        t2 = time.perf_counter()
+        out = rt.executor.classify(padded)
+        t3 = time.perf_counter()
+        out.rslt[:pb.batch].cpu()
+        t4 = time.perf_counter()
+        for k, a, b in (("request", t0, t1), ("admission", t1, t2),
+                        ("classify", t2, t3), ("result", t3, t4)):
+            parts[k] += (b - a) * 1e3 / n
+    print(f"{name} by part (host ms a step, unprofiled): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in parts.items())
+        + f"; sum {sum(parts.values()):.4f}")
+    return parts
+
+
+def eager_twins(prof, device, programs, runtimes):
+    """The zoo in the three modes and the planned path, as the graph path
+    has them, through executors built with ``graphs=False``: the eager
+    yardstick of phase 9."""
+    from repro_torch.runtime import (
+        DataplaneRuntime,
+        SequentialPathExecutor,
+        SingleSwitchExecutor,
+    )
+    from repro_torch.serving import ZooServer
+
+    zoos = {}
+    for m in MODES:
+        zoos[m] = ZooServer(prof, executor=SingleSwitchExecutor(
+            prof, mode=m, device=device, graphs=False))
+        for v, p in programs.items():
+            zoos[m].install(p, vid=v)
+    rts = {m: DataplaneRuntime(SequentialPathExecutor(
+        list(rt.executor.programs), n_classes=prof.max_classes, mode=m,
+        graphs=False)) for m, rt in runtimes.items()}
+    return zoos, rts
+
+
+def timing_phase(zoos, runtimes, eager_zoos, eager_runtimes, pb, prof,
+                 models, torch, n_iter=50):
     from repro_torch.kernels.classify_fused import (
         classify_fused,
         classify_fused_plain,
@@ -1505,7 +1641,7 @@ def timing_phase(zoos, runtimes, pb, prof, torch, n_iter=50):
         # must hold them all while it sleeps
         n = max(3, n_iter // per)
         k_ms = ms(kernel, n, torch, cyc) / per
-        p_ms = ms(plain, max(n_iter // 10, 3), torch, cyc) / per
+        p_ms = ms(plain, max(n_iter // 10, 3), torch, cyc, attempts=1) / per
         k_ms2 = ms(kernel, n, torch, cyc) / per
         lib_ms = (ms(library[name], n_iter, torch, cyc) if name in library
                   else None)
@@ -1529,30 +1665,597 @@ def timing_phase(zoos, runtimes, pb, prof, torch, n_iter=50):
           f"{out['forest_vote']['ms'] / out['launch_floor_forest_vote_grid_ms']:.2f}x"
           f"; tree_walk / classify_fused: "
           f"{out['tree_walk']['ms'] / out['classify_fused']['ms']:.2f}x")
+    stamp("kernel timing done")
     B = pb.batch
     X = pb.features.numpy()
     mid, vids = pb.mid.numpy(), pb.vid.numpy()
-    steps = {f"zoo_{m or 'fused'}": (lambda z=z: z.classify(X, mid=mid,
-                                                            vid=vids))
-             for m, z in zoos.items()}
-    steps.update({f"multi_switch_{m or 'fused'}":
-                  (lambda rt=rt: rt.run(pb).rslt.cpu())
-                  for m, rt in runtimes.items()})
-    rps = {}
+    steps = {}
+    for path, zs, rts in (("graph", zoos, runtimes),
+                          ("eager", eager_zoos, eager_runtimes)):
+        tag = "" if path == "graph" else "_eager"
+        steps.update({f"zoo_{m or 'fused'}{tag}":
+                      (lambda z=z: z.classify(X, mid=mid, vid=vids))
+                      for m, z in zs.items()})
+        steps.update({f"multi_switch_{m or 'fused'}{tag}":
+                      (lambda rt=rt: rt.run(pb).rslt.cpu())
+                      for m, rt in rts.items()})
+    rps, prof_steps, walls = {}, {}, {}
     for name, step in steps.items():
         step()
-        n_req = 20
-        t0 = time.perf_counter()
-        for _ in range(n_req):
+        # each step on the host clock: the median stands for the step, so
+        # one stall of the shared host (a collector pass, a neighbour)
+        # does not; the mean is printed beside it
+        dts = []
+        for _ in range(20):
+            t0 = time.perf_counter()
             step()
-        dt = time.perf_counter() - t0
-        rps[name] = n_req * B / dt
-        print(f"{name} end to end: {rps[name]:.0f} requests/s "
-              f"({dt / n_req * 1e3:.3f} ms per {B}-request batch)")
-    for name in ("zoo_fused", "zoo_unfused", "zoo_layerwise"):
+            dts.append(time.perf_counter() - t0)
+        walls[name] = sorted(dts)[len(dts) // 2]
+        rps[name] = B / walls[name]
+        print(f"{name} end to end: {rps[name]:.0f} requests/s (median "
+              f"{walls[name] * 1e3:.3f} ms per {B}-request batch of 20, "
+              f"mean {sum(dts) / len(dts) * 1e3:.3f} ms)")
+    stamp("end to end done")
+    for name, step in steps.items():
         print(f"-- where the time goes, {name}")
-        where_the_time_goes(steps[name], torch)
-    return out, rps
+        prof_steps[name] = dict(where_the_time_goes(step, torch, n=5),
+                                wall_ms=walls[name] * 1e3)
+    for name, z in (("zoo_fused", zoos[None]),
+                    ("zoo_fused_eager", eager_zoos[None])):
+        prof_steps[name]["host_ms"] = host_breakdown(name, z, X, mid, vids,
+                                                     torch)
+    stamp("profiles done")
+    writes = install_timing(zoos[None], models, torch)
+    return out, rps, prof_steps, writes
+
+
+def same_fields(what, got, want):
+    """Raise unless ``got`` and ``want`` agree on rslt, codes and svm_acc."""
+    import torch
+
+    for f in ("rslt", "codes", "svm_acc"):
+        g = getattr(got, f)
+        w = getattr(want, f).to(g.device)
+        if not torch.equal(g, w):
+            raise AssertionError(f"{what}: {f} differs in "
+                                 f"{int((g != w).sum())} places")
+
+
+def passthrough(prof):
+    """``make_batch(b)``: b zero FORWARD packets at ``prof``'s widths, the
+    batch a warm-up drives (the plane forwards it untouched)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.packets import PacketBatch
+
+    def make(b):
+        pb = PacketBatch.make_request(
+            np.zeros((b, prof.max_features), np.int32),
+            max_features=prof.max_features, n_trees=prof.max_trees,
+            n_hyperplanes=prof.max_hyperplanes)
+        return dataclasses.replace(pb, ptype=torch.zeros(b, dtype=torch.int32))
+    return make
+
+
+def kernel_events(run, torch):
+    """``run()`` once under the profiler: the device kernels it ran, by
+    wrapper name (``KERNEL_FN``), and its ``cudaGraphLaunch`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        run()
+        torch.cuda.synchronize()
+    got, graphs = {}, 0
+    for e in p.key_averages():
+        if e.device_type == DeviceType.CPU:
+            graphs += e.count if e.key.startswith("cudaGraphLaunch") else 0
+            continue
+        for name, fn in KERNEL_FN.items():
+            if fn in e.key:
+                got[name] = got.get(name, 0) + e.count
+    return got, graphs
+
+
+def draws_phase(device):
+    """The 204 conformance draws (the port's models, ``data/conformance``)
+    through graph replay and eager classify in the three modes, each held
+    to ``SwitchEngine(mode="ref")``; every draw a replay of a warmed
+    bucket, with exactly the mode's launches."""
+    import numpy as np
+    from repro_torch.core.plane import SwitchEngine
+    from repro_torch.data import conformance as draws
+    from repro_torch.runtime import DataplaneRuntime, SingleSwitchExecutor
+
+    n = 0
+    for V in sorted(draws.N_CASES):
+        cprof = draws.profile(V)
+        maker = SwitchEngine(cprof, device=device)
+        oracle = SwitchEngine(cprof, mode="ref", device=device)
+        rts = {(m, g): DataplaneRuntime(SingleSwitchExecutor(
+            cprof, mode=m, device=device, graphs=g))
+            for m in MODES for g in (True, False)}
+        top = max(draws.SIZES)
+        ladders = {k: rt.warm(passthrough(cprof), top)
+                   for k, rt in rts.items() if k[1]}
+        for case in range(draws.N_CASES[V]):
+            packed, pb = draws.draw_case(V, case, maker)
+            want = oracle.classify(packed, pb)
+            outs = {}
+            for (m, g), rt in rts.items():
+                rt.swap(packed)
+                outs[m, g] = checked(lambda: rt.run(pb), per_classify(m, cprof))
+                same_fields(f"V={V} case={case} mode={m} "
+                            f"{'graph' if g else 'eager'}", outs[m, g], want)
+            for m in MODES:
+                same_fields(f"V={V} case={case} mode={m} graph vs eager",
+                            outs[m, True], outs[m, False])
+            n += 1
+        for k, ladder in ladders.items():
+            if rts[k].cache_size() != len(ladder):
+                raise AssertionError(f"V={V} mode={k[0]}: cache_size "
+                                     f"{rts[k].cache_size()} after the draws, "
+                                     f"warmed {len(ladder)}")
+        print(f"V={V}: {draws.N_CASES[V]} draws, graph replay == eager == "
+              f"mode ref on rslt, codes, svm_acc in modes "
+              f"{[m or 'fused' for m in MODES]}; launches per replay "
+              f"{[per_classify(m, cprof) for m in MODES]}; cache_size "
+              f"{len(ladder)} before and after")
+    return n
+
+
+def graph_phase(prof, seed, device, models, programs, zoos, runtimes, pb):
+    """Phase 10: the graph path on the card (see the module docstring).
+    Returns the zoo warmed to ``BATCH`` that phase 11 serves."""
+    from repro_torch.core.plane import SwitchEngine
+
+    me = [sys.executable, str(Path(__file__).resolve())]
+    with contextlib.ExitStack() as stack:
+        # two children beside this phase's checks: a capture that must fail,
+        # and ncu (phase 9's counters) where the machine has it
+        failing = stack.enter_context(child(me + ["--capture-failure"]))
+        ncu = ncu_args(seed)
+        ncu = stack.enter_context(child(ncu, 240)) if ncu else None
+        zoo = graph_checks(prof, device, models, programs, zoos, runtimes,
+                           pb, oracle=SwitchEngine(prof, mode="ref",
+                                                   device=device))
+        rc, (out, err) = failing()
+        last = (err.strip().splitlines() or [""])[-1]
+        print(f"--capture-failure: exit {rc}; {last[:300]}")
+        if rc == 0 or '"ok": true' in out:
+            raise AssertionError("a failing capture did not end the run")
+        if "capture" not in err.lower():
+            raise AssertionError("the child failed, but not in its "
+                                 "capture: " + err[-2000:])
+        if ncu is None:
+            print("ncu: not on this machine; occupancy and DRAM throughput "
+                  "not measured")
+        else:
+            report_ncu(*ncu())
+    return zoo
+
+
+def graph_checks(prof, device, models, programs, zoos, runtimes, pb,
+                 oracle):
+    """Phase 10's checks on this process's card (see ``graph_phase``)."""
+    import threading
+
+    import torch
+    from repro_torch.core.plane import program_tensors
+    from repro_torch.core.translator import translate
+    from repro_torch.runtime import DataplaneRuntime, SequentialPathExecutor
+    from repro_torch.serving import ZooServer
+
+    t0 = time.perf_counter()
+    n = draws_phase(device)
+    print(f"{n} draws in {time.perf_counter() - t0:.1f} s")
+    stamp("draws done")
+
+    def rows(B):
+        return pb.map(lambda x: x[:B])
+
+    # the planned path, fused and layerwise: replay == eager == the single
+    # switch in mode ref, at B 4096 and the ragged sizes
+    for m, rt in runtimes.items():
+        hops = len(rt.executor.programs)
+        rt.warm(passthrough(prof), BATCH)
+        eager = DataplaneRuntime(SequentialPathExecutor(
+            list(rt.executor.programs), n_classes=prof.max_classes, mode=m,
+            graphs=False))
+        for B in (BATCH,) + RAGGED:
+            pbx = rows(B)
+            want = oracle.classify(zoos[None].packed, pbx)
+            got = checked(lambda: rt.run(pbx), per_classify(m, prof),
+                          n_classify=hops)
+            same_fields(f"path {m or 'fused'} B={B} graph", got, want)
+            same_fields(f"path {m or 'fused'} B={B} eager", eager.run(pbx),
+                        want)
+        print(f"path of {hops} hops, mode {m or 'fused'}: replay == eager == "
+              f"the single switch in mode ref at B {(BATCH,) + RAGGED}; "
+              f"launches per replay {hops} x {per_classify(m, prof)}")
+
+    stamp("path done")
+    # one replay under the profiler: exactly the mode's kernels
+    for m, zoo in zoos.items():
+        zoo.runtime.run(pb)
+        got, graphs = kernel_events(lambda: zoo.runtime.run(pb), torch)
+        want = per_classify(m, prof)
+        print(f"profiler, one replay ({m or 'fused'}): kernels {got}, "
+              f"cudaGraphLaunch {graphs}")
+        if got != want or graphs != 1:
+            raise AssertionError(f"one replay ran {got} and {graphs} graph "
+                                 f"launches, expected {want} and 1")
+    for m, rt in runtimes.items():
+        hops = len(rt.executor.programs)
+        got, graphs = kernel_events(lambda: rt.run(pb), torch)
+        want = {k: hops * v for k, v in per_classify(m, prof).items()}
+        print(f"profiler, one replay of the path ({m or 'fused'}): kernels "
+              f"{got}, cudaGraphLaunch {graphs}")
+        if got != want or graphs != 1:
+            raise AssertionError(f"one path replay ran {got}, expected {want}")
+
+    # install and evict between replays, in place
+    dt3 = translate(models[1], vid=3)
+    for m, zoo in zoos.items():
+        ptrs = [t.data_ptr() for t in program_tensors(zoo.packed)]
+        size = zoo.cache_size()
+        base = zoo.runtime.run(pb)
+        steps = [("install vid 3", lambda: zoo.install(dt3, vid=3)),
+                 ("evict vid 3", lambda: zoo.evict(vid=3)),
+                 ("evict vid 0", lambda: zoo.evict(vid=0)),
+                 ("reinstall vid 0", lambda: zoo.install(programs[0],
+                                                         vid=0))]
+        changed = []
+        for what, write in steps:
+            write()
+            out = zoo.runtime.run(pb)
+            same_fields(f"{m or 'fused'} after {what}", out,
+                        oracle.classify(zoo.packed, pb))
+            changed.append(int((out.rslt != base.rslt).sum()))
+        if not (changed[0] > 0 and changed[1] == 0 and changed[2] > 0
+                and changed[3] == 0):
+            raise AssertionError(f"the writes did not show: {changed}")
+        if [t.data_ptr() for t in program_tensors(zoo.packed)] != ptrs:
+            raise AssertionError("a slot write moved a resident tensor")
+        if zoo.cache_size() != size:
+            raise AssertionError("a slot write changed the graph cache")
+        print(f"{m or 'fused'}: install vid 3, evict vid 3, evict vid 0, "
+              f"reinstall vid 0 between replays: the next replay == mode ref "
+              f"each time ({changed} packets changed from the first); "
+              f"{len(ptrs)} resident data_ptrs unchanged; cache_size {size}")
+
+    # cache_size is the warmed ladder; ragged replays add nothing
+    zoo = ZooServer(prof, device=device)
+    for v, p in programs.items():
+        zoo.install(p, vid=v)
+    ladder = zoo.runtime.warm(passthrough(prof), BATCH)
+    if zoo.cache_size() != len(ladder):
+        raise AssertionError(f"cache_size {zoo.cache_size()} after warming "
+                             f"{len(ladder)} buckets")
+    wants = {}
+    for B in RAGGED + (BATCH,):
+        out = zoo.runtime.run_host(rows(B))
+        wants[B] = oracle.classify(zoo.packed, rows(B))
+        same_fields(f"ragged B={B}", out, wants[B])
+    if zoo.cache_size() != len(ladder):
+        raise AssertionError(f"ragged replays grew the cache to "
+                             f"{zoo.cache_size()}")
+    print(f"warm({BATCH}): cache_size {zoo.cache_size()} == ladder "
+          f"{ladder}; run_host at B {RAGGED} == mode ref, cache_size "
+          "unchanged")
+
+    # two threads replaying at once
+    errors = []
+
+    def worker(sizes, rounds=25):
+        try:
+            for _ in range(rounds):
+                for B in sizes:
+                    same_fields(f"thread B={B}", zoo.runtime.run_host(rows(B)),
+                                wants[B])
+        except Exception as e:   # reported by the main thread
+            errors.append(e)
+    sizes = ((BATCH, RAGGED[2], RAGGED[1]), (RAGGED[-1], RAGGED[3], BATCH))
+    threads = [threading.Thread(target=worker, args=(sz,)) for sz in sizes]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"concurrent replays: {errors or 'timed out'}")
+    print(f"two threads x 25 rounds of run_host at B {sizes[0]} and "
+          f"{sizes[1]}, replaying the same graphs: every answer == mode ref")
+
+    stamp("threads done")
+    return zoo
+
+
+def capture_failure(seed) -> int:
+    """A zoo whose classify synchronises with the host: the warm-up runs,
+    the capture must raise, and that error must end this process."""
+    import numpy as np
+    import torch
+    from repro_torch.data import conformance as draws
+    from repro_torch.runtime import executors
+    from repro_torch.serving import ZooServer
+
+    real = executors._classify_impl
+
+    def syncing(packed, pb, **kw):
+        int(pb.vid.sum())          # a host read: illegal while capturing
+        return real(packed, pb, **kw)
+
+    executors._classify_impl = syncing
+    zoo = ZooServer(draws.profile(1), device=torch.device("cuda"))
+    print("capture-failure: classifying through a graph whose body reads "
+          "the host", flush=True)
+    zoo.classify(np.zeros((3, draws.N_FEATURES), np.int32), mid=0, vid=0)
+    print(f"capture-failure: NO ERROR, cache_size {zoo.cache_size()}")
+    return 0
+
+
+def install_timing(zoo, models, torch, n=7):
+    """ms of one in-place slot install and one evict (the DT into vid 3),
+    each from the call to the card's finishing it."""
+    from repro_torch.core.translator import translate
+
+    prog = translate(models[1], vid=3)
+    out = {"install": [], "evict": []}
+    for _ in range(n):
+        for what, write in (("install", lambda: zoo.install(prog, vid=3)),
+                            ("evict", lambda: zoo.evict(vid=3))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            write()
+            torch.cuda.synchronize()
+            out[what].append((time.perf_counter() - t0) * 1e3)
+    for what, xs in out.items():
+        xs.sort()
+        print(f"{what} of one slot (the {prog.n_trees}-tree DT, "
+              f"{sum(len(l) for l in prog.dt_layers)} layer rows): median "
+              f"{xs[n // 2]:.3f} ms, min {xs[0]:.3f} ms over {n}")
+    return {k: xs[n // 2] for k, xs in out.items()}
+
+
+def dispatch_probe(zoo, reqs, torch, n=30):
+    """One dispatch's pieces, host clock: eight requests coalesced, then
+    ``run_host`` of them on this thread and on a worker thread, as a slot
+    runs it; then sequential submits to an idle ``ContinuousZooServer``,
+    split by the server into queue wait and dispatch."""
+    import asyncio
+    import concurrent.futures
+
+    import numpy as np
+    from repro_torch.runtime import SizeOrDeadlinePolicy
+    from repro_torch.serving import ContinuousZooServer
+
+    rt = zoo.runtime
+    pbs = [zoo.make_request(X, mid=m, vid=v) for X, m, v in reqs[:8]]
+    t0 = time.perf_counter()
+    for _ in range(n):
+        flat, _ = rt.coalesce(pbs)
+    t_co = (time.perf_counter() - t0) / n * 1e3
+
+    def run_host():
+        t0 = time.perf_counter()
+        for _ in range(n):
+            rt.run_host(flat)
+        return (time.perf_counter() - t0) / n * 1e3
+    t_main = run_host()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        t_thread = pool.submit(run_host).result()
+
+    async def idle():
+        async with ContinuousZooServer(zoo, policy=SizeOrDeadlinePolicy(
+                max_batch=BATCH, max_wait_us=500.0), n_slots=2) as srv:
+            for X, m, v in reqs[:n]:
+                await srv.submit(X, mid=m, vid=v)
+            return srv.latency_stats()
+    st = asyncio.run(idle())
+    print(f"one dispatch of 8 requests ({flat.batch} packets): coalesce "
+          f"{t_co:.3f} ms, run_host {t_main:.3f} ms on this thread and "
+          f"{t_thread:.3f} ms on a worker; {n} sequential submits to an idle "
+          f"ContinuousZooServer: p50 {st['p50_ms']:.3f} ms, queue wait p50 "
+          f"{st['p50_wait_ms']:.3f} ms, a dispatch "
+          f"{st['mean_dispatch_ms']:.3f} ms")
+
+
+def fronts_phase(prof, seed, zoo, test_sets, device):
+    """Phase 11: ``AsyncZooServer`` and ``ContinuousZooServer`` against the
+    sync classify on the zoo's traffic; the closed-loop rate of the engine;
+    ``open_loop`` at ``LOADS`` of it."""
+    import asyncio
+
+    import numpy as np
+    import torch
+    from repro_torch.core.packets import u32_from_bits
+    from repro_torch.runtime import SizeOrDeadlinePolicy, trim
+    from repro_torch.runtime.admission import land_on_host
+    from repro_torch.serving import (
+        AsyncZooServer,
+        ContinuousZooServer,
+        open_loop,
+    )
+
+    rng = np.random.default_rng(seed + 11)
+    pbs = [traffic(rng, zoo, test_sets, int(rng.integers(1, 65)))[0]
+           for _ in range(96)]
+    wants = [zoo.runtime.run_host(p) for p in pbs]
+
+    def policy():
+        return SizeOrDeadlinePolicy(max_batch=BATCH, max_wait_us=500.0)
+
+    async def fronts(cls, **kw):
+        async with cls(zoo, policy=policy(), **kw) as srv:
+            outs = await asyncio.gather(*[srv.submit_batch(p) for p in pbs])
+            return outs, srv.latency_stats()
+
+    for cls, kw in ((AsyncZooServer, {}),
+                    (ContinuousZooServer, {"n_slots": 2})):
+        outs, stats = asyncio.run(fronts(cls, **kw))
+        for i, (o, w) in enumerate(zip(outs, wants)):
+            if not (np.array_equal(o.rslt, w.rslt.numpy())
+                    and np.array_equal(o.codes, u32_from_bits(w.codes))
+                    and np.array_equal(o.svm_acc, w.svm_acc.numpy())):
+                raise AssertionError(f"{cls.__name__} request {i} != the "
+                                     "sync classify")
+        print(f"{cls.__name__}: {len(pbs)} requests of 1-64 packets == "
+              f"ZooServer's sync classify on rslt, codes, svm_acc; "
+              f"{stats['dispatches']} dispatches, "
+              f"{stats['mean_batch_packets']:.1f} packets a dispatch"
+              + (f", engine {stats['engine']}" if "engine" in stats else ""))
+
+    # requests for the load runs: 1-64 packets of the zoo's traffic
+    reqs = []
+    for _ in range(512):
+        pbn, Xn, vn, _ = traffic(rng, zoo, test_sets, int(rng.integers(1, 65)))
+        reqs.append((Xn, pbn.mid.numpy(), vn))
+
+    dispatch_probe(zoo, reqs, torch)
+
+    async def closed(seconds=LOAD_SECONDS):
+        async with ContinuousZooServer(zoo, policy=policy(),
+                                       n_slots=2) as srv:
+            loop = asyncio.get_running_loop()
+            done = [0]
+            t_end = loop.time() + seconds
+
+            async def client(c):
+                i = c
+                while loop.time() < t_end:
+                    X, mid, vid = reqs[i % len(reqs)]
+                    await srv.submit(X, mid=mid, vid=vid)
+                    done[0] += 1
+                    i += CLIENTS
+            t0 = loop.time()
+            await asyncio.gather(*[client(c) for c in range(CLIENTS)])
+            return done[0] / (loop.time() - t0), srv.latency_stats()
+
+    rate, stats = asyncio.run(closed())
+    print(f"closed loop, {CLIENTS} clients x {LOAD_SECONDS} s through "
+          f"ContinuousZooServer (n_slots 2, size-or-deadline {BATCH} / 500 "
+          f"us): {rate:.1f} requests/s, p50 {stats['p50_ms']:.3f} ms, p99 "
+          f"{stats['p99_ms']:.3f} ms, {stats['mean_batch_packets']:.1f} "
+          "packets a dispatch")
+
+    async def opened(load):
+        async with ContinuousZooServer(zoo, policy=policy(),
+                                       n_slots=2) as srv:
+            # instruments: run_host as the slot threads see it, and how
+            # late the event loop wakes from a 1 ms sleep
+            on_thread, lags, done = [], [], asyncio.Event()
+            rt = srv.runtime
+
+            def timed(flat):
+                # run_host's steps, each on the clock
+                t = [time.perf_counter()]
+                padded = rt.admit(flat)
+                t.append(time.perf_counter())
+                out = rt.executor.classify(padded)
+                t.append(time.perf_counter())
+                host = trim(land_on_host(out), flat.batch)
+                t.append(time.perf_counter())
+                res = (host.rslt.numpy(), u32_from_bits(host.codes),
+                       host.svm_acc.numpy())
+                t.append(time.perf_counter())
+                on_thread.append(np.diff(t) * 1e3)
+                return res
+            srv._classify_flat = timed
+            made = []
+            make = srv.zoo.make_request
+
+            def timed_make(*a, **kw):
+                t0 = time.perf_counter()
+                pb = make(*a, **kw)
+                made.append((time.perf_counter() - t0) * 1e3)
+                return pb
+            srv.zoo.make_request = timed_make
+            loop = asyncio.get_running_loop()
+
+            async def lag():
+                while not done.is_set():
+                    t0 = loop.time()
+                    await asyncio.sleep(1e-3)
+                    lags.append((loop.time() - t0 - 1e-3) * 1e3)
+
+            async def submit(i):
+                X, mid, vid = reqs[i % len(reqs)]
+                await srv.submit(X, mid=mid, vid=vid)
+            n = max(int(load * rate * LOAD_SECONDS), 8)
+            pauses = []
+            t_gc = [0.0]
+
+            def on_gc(what, info):
+                if what == "start":
+                    t_gc[0] = time.perf_counter()
+                else:
+                    pauses.append((info["generation"],
+                                   (time.perf_counter() - t_gc[0]) * 1e3))
+            gc.callbacks.append(on_gc)
+            probe = loop.create_task(lag())
+            try:
+                report = await open_loop(submit, rate_rps=load * rate,
+                                         n_requests=n, n_clients=8,
+                                         seed=seed)
+            finally:
+                gc.callbacks.remove(on_gc)
+                del srv.zoo.make_request
+            done.set()
+            await probe
+            parts = np.mean(on_thread, axis=0)
+            return report, dict(srv.latency_stats(),
+                                run_host_ms=float(parts.sum()),
+                                run_host_parts_ms=[float(x) for x in parts],
+                                make_request_ms=float(np.mean(made)),
+                                lag_p50_ms=float(np.percentile(lags, 50)),
+                                lag_p99_ms=float(np.percentile(lags, 99)),
+                                gc_n=len(pauses),
+                                gc_ms=sum(ms_ for _, ms_ in pauses),
+                                gc2_n=sum(g == 2 for g, _ in pauses),
+                                gc_max_ms=max((ms_ for _, ms_ in pauses),
+                                              default=0.0))
+
+    def row(load, report, stats):
+        print(f"open loop at {load} x {rate:.1f} = {report.offered_rps:.1f} "
+              f"requests/s offered (Poisson, 1-64 packets): achieved "
+              f"{report.achieved_rps:.1f}/s, p50 {report.p50_ms:.3f} ms, p99 "
+              f"{report.p99_ms:.3f} ms, p99.9 {report.p999_ms:.3f} ms, errors "
+              f"{report.errors} of {report.requests}; in the server: p50 "
+              f"{stats['p50_ms']:.3f} ms, queue wait p50 "
+              f"{stats['p50_wait_ms']:.3f} ms, a dispatch "
+              f"{stats['mean_dispatch_ms']:.3f} ms (run_host on its thread "
+              f"{stats['run_host_ms']:.3f} ms: admit, classify, land, to "
+              "numpy " + " / ".join(f"{x:.3f}" for x in
+                                      stats["run_host_parts_ms"])
+              + f"), a request built in {stats['make_request_ms']:.3f} ms on "
+              f"the loop, "
+              f"{stats['mean_batch_packets']:.1f} packets; the event loop "
+              f"wakes late by p50 {stats['lag_p50_ms']:.3f} ms, p99 "
+              f"{stats['lag_p99_ms']:.3f} ms; the garbage collector ran "
+              f"{stats['gc_n']} times ({stats['gc2_n']} full), "
+              f"{stats['gc_ms']:.1f} ms in all, longest "
+              f"{stats['gc_max_ms']:.1f} ms")
+        if report.errors:
+            raise AssertionError(f"{report.errors} requests failed at load "
+                                 f"{load}")
+        return dict(load=load, **report.row(),
+                    mean_batch_packets=stats["mean_batch_packets"],
+                    server_p50_ms=stats["p50_ms"],
+                    server_wait_p50_ms=stats["p50_wait_ms"],
+                    dispatch_ms=stats["mean_dispatch_ms"],
+                    run_host_ms=stats["run_host_ms"],
+                    run_host_parts_ms=stats["run_host_parts_ms"],
+                    make_request_ms=stats["make_request_ms"],
+                    loop_lag_p50_ms=stats["lag_p50_ms"],
+                    loop_lag_p99_ms=stats["lag_p99_ms"],
+                    gc_collections=stats["gc_n"], gc_full=stats["gc2_n"],
+                    gc_ms=stats["gc_ms"], gc_max_ms=stats["gc_max_ms"])
+
+    rows = [row(load, *asyncio.run(opened(load))) for load in LOADS]
+    torch.cuda.synchronize()
+    return {"closed_loop_requests_per_s": rate, "open_loop": rows}
 
 
 def main(argv=None) -> int:
@@ -1565,6 +2268,10 @@ def main(argv=None) -> int:
                     help="only phase 4's two-stream check of decode_attn "
                          "against the sources beside this script; exits 1 "
                          "if an output was wrong")
+    ap.add_argument("--capture-failure", action="store_true",
+                    help="only a classify whose graph capture must fail; "
+                         "the error ends the process (phase 10 runs this "
+                         "and requires a nonzero exit)")
     args = ap.parse_args(argv)
     import torch
 
@@ -1581,6 +2288,8 @@ def main(argv=None) -> int:
     if args.two_streams:
         found = two_streams(args.seed, torch.device("cuda"))
         return int(any(bad for _, bad in found.values()))
+    if args.capture_failure:
+        return capture_failure(args.seed)
     from repro_torch.core.plane import PlaneProfile
 
     t_start = time.perf_counter()
@@ -1630,11 +2339,25 @@ def main(argv=None) -> int:
                               lambda: lm_path_phase(args.seed, device),
                               ["decode_attn"])
     lm_check_phase(cfg, lm, runs, args.seed, device)
-    phase(f"9 timing at B = {BATCH}; the decode step at kv_len {LM_CACHE}")
-    t, rps = timing_phase(zoos, runtimes, pb, prof, torch)
+    phase(f"9 timing at B = {BATCH}, graph and eager paths; the decode step "
+          f"at kv_len {LM_CACHE}")
+    eager_zoos, eager_runtimes = eager_twins(prof, device, programs,
+                                             runtimes)
+    t, rps, steps, writes = timing_phase(
+        zoos, runtimes, eager_zoos, eager_runtimes, pb, prof, models, torch)
+    del eager_zoos, eager_runtimes
     t["decode_attn"], step_tok_s = lm_timing(cfg, lm, args.seed, torch)
+    stamp("decode step timed")
     wide = attn_shapes_timing(args.seed, torch)
-    kernel_resources(libs, args.seed)
+    stamp("attention shapes timed")
+    kernel_resources(libs)
+    phase("10 the graph path: replay vs eager vs mode ref, in-place writes, "
+          "the cache, two threads, a failing capture")
+    warmed = graph_phase(prof, args.seed, device, models, programs, zoos,
+                         runtimes, pb)
+    phase("11 main path: the async fronts over the graph path, open loop")
+    fronts = main_path("async_fronts", lambda: fronts_phase(
+        prof, args.seed, warmed, test_sets, device), ["classify_fused"])
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1651,6 +2374,8 @@ def main(argv=None) -> int:
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"paths": {"launches": path_launches,
                                 "requests_per_s": rps,
+                                "steps": steps, "slot_write_ms": writes,
+                                "fronts": fronts,
                                 "lm_decode": served},
                       "decode_attn_shapes": {
                           k: {x: a[x] for x in ("ms", "plain_ms", "bound_ms",

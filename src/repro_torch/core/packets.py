@@ -24,10 +24,14 @@ import torch
 
 __all__ = ["PacketType", "PacketBatch", "header_bytes", "request_bytes",
            "response_bytes", "u32_bits", "u32_from_bits", "batch_from_arrays",
-           "batch_to_arrays"]
+           "batch_to_arrays", "FIELDS", "widths", "flat_size", "flat_views",
+           "flat_of", "pack_flat"]
 
 # PacketBatch fields that hold uint32 values as int32 bit patterns.
 U32_FIELDS = ("packet_id", "codes")
+# Every PacketBatch field, in declaration order (the flat layout's order).
+FIELDS = ("packet_id", "ptype", "mid", "vid", "rslt", "rid", "features",
+          "codes", "svm_acc")
 
 
 def u32_bits(x) -> torch.Tensor:
@@ -156,6 +160,69 @@ def batch_to_arrays(pb: PacketBatch) -> dict:
                      if f.name in U32_FIELDS
                      else getattr(pb, f.name).detach().cpu().numpy())
             for f in dataclasses.fields(pb)}
+
+
+# --------------------------------------------------------------------------
+# The flat layout: a whole batch in one int32 buffer, one copy to move it
+# --------------------------------------------------------------------------
+def widths(pb: PacketBatch) -> tuple[int, int, int]:
+    """(F, T, H): the widths of the features, codes and svm_acc rows."""
+    return (pb.features.shape[1], pb.codes.shape[1], pb.svm_acc.shape[1])
+
+
+def _layout(B: int, F: int, T: int, H: int):
+    """(field, offset, shape) of each field in the flat buffer: the six
+    header fields of B each, then features, codes and svm_acc row-major."""
+    off = 0
+    for name in FIELDS:
+        shape = {"features": (B, F), "codes": (B, T),
+                 "svm_acc": (B, H)}.get(name, (B,))
+        yield name, off, shape
+        off += int(np.prod(shape))
+
+
+def flat_size(B: int, F: int, T: int, H: int) -> int:
+    """int32 elements of a B-packet batch in the flat layout."""
+    return B * (6 + F + T + H)
+
+
+def flat_views(flat: torch.Tensor, B: int, F: int, T: int,
+               H: int) -> PacketBatch:
+    """The batch whose fields are contiguous views of ``flat`` (int32
+    ``[flat_size(B, F, T, H)]``), in the flat layout."""
+    return PacketBatch(**{name: flat[off:off + int(np.prod(shape))]
+                          .view(shape)
+                          for name, off, shape in _layout(B, F, T, H)})
+
+
+def pack_flat(pb: PacketBatch, bucket: int, flat: torch.Tensor) -> None:
+    """Write the host batch ``pb``, padded with zero packets to ``bucket``,
+    into ``flat`` (host int32 ``[flat_size(bucket, F, T, H)]``) in the flat
+    layout; numpy copies, a few microseconds a field."""
+    B, (F, T, H) = pb.batch, widths(pb)
+    out = flat.numpy()
+    for name, off, shape in _layout(bucket, F, T, H):
+        n = B * int(np.prod(shape[1:]))
+        out[off:off + n] = getattr(pb, name).numpy().reshape(-1)
+        out[off + n:off + int(np.prod(shape))] = 0
+
+
+def flat_of(pb: PacketBatch) -> torch.Tensor | None:
+    """The one flat buffer under ``pb`` when its fields are exactly
+    ``flat_views`` of it, else None."""
+    base = pb.packet_id._base
+    if base is None or base.dtype != torch.int32 or base.dim() != 1:
+        return None
+    B, (F, T, H) = pb.batch, widths(pb)
+    if base.numel() != flat_size(B, F, T, H):
+        return None
+    start = base.storage_offset()
+    for name, off, shape in _layout(B, F, T, H):
+        x = getattr(pb, name)
+        if (x._base is not base or x.storage_offset() != start + off
+                or tuple(x.shape) != shape or not x.is_contiguous()):
+            return None
+    return base
 
 
 # --------------------------------------------------------------------------

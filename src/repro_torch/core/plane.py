@@ -24,6 +24,12 @@ Install-time compilation (the exec image): program state splits into
 evict prep only the written slot's image and splice it in.  Both return a
 new ``PackedProgram`` and never write a tensor of the old one, which stays
 valid; tensors the write does not touch are shared between the two.
+
+A captured CUDA graph reads fixed addresses, so the executors that replay
+one (``runtime/graphs.py``) hold a **resident** program instead
+(``resident_program``): tensors of their own, written in place by
+``install_program_``, ``evict_program_`` and ``copy_program_``, slot by
+slot with ``copy_``, so no ``data_ptr`` ever moves.
 """
 from __future__ import annotations
 
@@ -46,6 +52,11 @@ __all__ = [
     "empty_program",
     "install_program",
     "evict_program",
+    "install_program_",
+    "evict_program_",
+    "resident_program",
+    "copy_program_",
+    "program_tensors",
     "packed_from_arrays",
     "DEFAULT_DEVICE",
 ]
@@ -234,28 +245,16 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def install_program(
-    packed: PackedProgram,
-    program: TableProgram,
-    profile: PlaneProfile,
-    *,
-    stages: set[int] | None = None,
-    vid: int | None = None,
-) -> PackedProgram:
-    """Write a TableProgram's entries into one model-zoo version slot (the
-    control plane's 'update the entries in predefined tables', paper §6.2).
-
-    ``vid`` selects the slot (default: the program's own ``vid``); every other
-    slot — and the *other* pipeline's state — is preserved.  ``stages``
-    restricts installation to a subset of program stages (the planner's
-    per-device assignment); ``None`` installs everything.
-    """
+def _program_slot(program: TableProgram, profile: PlaneProfile,
+                  stages: set[int] | None, vid: int | None
+                  ) -> tuple[int, dict]:
+    """One slot's source tables for ``program`` (host arrays keyed by field
+    name), and the slot they go to."""
     vid = _check_vid(program.vid if vid is None else vid, profile)
     specs = program.stages()
     if stages is None:
         stages = set(range(len(specs)))
     own = [specs[i] for i in sorted(stages)]
-    dev = packed.device
 
     if program.kind in ("dt", "rf"):
         L, T, E = profile.max_layers, profile.max_trees, profile.max_entries_per_layer
@@ -340,11 +339,49 @@ def install_program(
                      svm_pred_table=tbl, svm_pred_enable=np.asarray(own_pred))
     else:
         raise ValueError(f"unknown program kind {program.kind}")
+    return vid, slots
 
+
+def install_program(
+    packed: PackedProgram,
+    program: TableProgram,
+    profile: PlaneProfile,
+    *,
+    stages: set[int] | None = None,
+    vid: int | None = None,
+) -> PackedProgram:
+    """Write a TableProgram's entries into one model-zoo version slot (the
+    control plane's 'update the entries in predefined tables', paper §6.2).
+
+    ``vid`` selects the slot (default: the program's own ``vid``); every other
+    slot — and the *other* pipeline's state — is preserved.  ``stages``
+    restricts installation to a subset of program stages (the planner's
+    per-device assignment); ``None`` installs everything.
+    """
+    vid, slots = _program_slot(program, profile, stages, vid)
+    dev = packed.device
     new = dataclasses.replace(packed, **{
         name: _with_slot(getattr(packed, name), vid, _tensor(a, dev))
         for name, a in slots.items()})
     return _splice_slot(new, packed.image, vid)
+
+
+def install_program_(
+    packed: PackedProgram,
+    program: TableProgram,
+    profile: PlaneProfile,
+    *,
+    stages: set[int] | None = None,
+    vid: int | None = None,
+) -> PackedProgram:
+    """``install_program`` written in place into ``packed``'s own tensors
+    (a resident program): the same tables, no ``data_ptr`` moved.  Returns
+    ``packed``."""
+    vid, slots = _program_slot(program, profile, stages, vid)
+    dev = packed.device
+    _write_slot_(packed, vid, {name: _tensor(a, dev)
+                               for name, a in slots.items()})
+    return packed
 
 
 @functools.lru_cache(maxsize=8)
@@ -364,6 +401,26 @@ def evict_program(
     """Empty one model-zoo version slot (``kind``: "tree" | "svm" | "all").
     Packets addressing an evicted slot get ``rslt == -1`` — same as a slot
     that was never installed."""
+    vid, blank = _blank_fields(profile, vid, kind, packed.device)
+    new = dataclasses.replace(packed, **{
+        f: _with_slot(getattr(packed, f), vid, b) for f, b in blank.items()})
+    # The fused group spans both pipelines: rebuild its slot from the slot's
+    # post-evict source tables.
+    return _splice_slot(new, packed.image, vid)
+
+
+def evict_program_(packed: PackedProgram, profile: PlaneProfile, *,
+                   vid: int, kind: str = "all") -> PackedProgram:
+    """``evict_program`` written in place into ``packed``'s own tensors (a
+    resident program).  Returns ``packed``."""
+    vid, blank = _blank_fields(profile, vid, kind, packed.device)
+    _write_slot_(packed, vid, blank)
+    return packed
+
+
+def _blank_fields(profile: PlaneProfile, vid: int, kind: str, device
+                  ) -> tuple[int, dict]:
+    """The blank slot tables an evict of ``kind`` writes, on ``device``."""
     vid = _check_vid(vid, profile)
     if kind not in ("tree", "svm", "all"):
         raise ValueError(f"unknown evict kind {kind!r}")
@@ -371,13 +428,59 @@ def evict_program(
     fields = (_TREE_FIELDS if kind == "tree"
               else _SVM_FIELDS if kind == "svm"
               else _TREE_FIELDS + _SVM_FIELDS)
-    new = dataclasses.replace(packed, **{
-        f: _with_slot(getattr(packed, f), vid,
-                      getattr(blank, f)[0].to(packed.device))
-        for f in fields})
-    # The fused group spans both pipelines: rebuild its slot from the slot's
-    # post-evict source tables.
-    return _splice_slot(new, packed.image, vid)
+    return vid, {f: getattr(blank, f)[0].to(device) for f in fields}
+
+
+def _write_slot_(packed: PackedProgram, vid: int, values: dict) -> None:
+    """Copy one slot's source tables into ``packed`` and re-prep that slot
+    of its exec image, every write a ``copy_`` into the tensors it has."""
+    if packed.image is None:
+        raise ValueError("a program written in place must carry its exec "
+                         "image (resident_program builds it)")
+    for name, value in values.items():
+        getattr(packed, name)[vid].copy_(value)
+    slot = _fused_operands(packed, slice(vid, vid + 1))
+    for full, s in zip(packed.image.fused, slot):
+        full[vid].copy_(s[0])
+
+
+def program_tensors(packed: PackedProgram) -> list[torch.Tensor]:
+    """Every tensor of ``packed``: the source tables, then its exec image."""
+    tables = [getattr(packed, f.name) for f in dataclasses.fields(packed)
+              if f.name != "image"]
+    return tables + ([] if packed.image is None else list(packed.image.fused))
+
+
+def resident_program(packed: PackedProgram) -> PackedProgram:
+    """A copy of ``packed`` in tensors of its own, with its exec image:
+    what an executor holds and writes in place."""
+    if packed.image is None:
+        packed = dataclasses.replace(packed, image=build_exec_image(packed))
+    fields = {f.name: getattr(packed, f.name).clone()
+              for f in dataclasses.fields(packed) if f.name != "image"}
+    image = ExecImage(fused=tiling.ClassifyFusedOperands(
+        *(x.clone() for x in packed.image.fused)))
+    return PackedProgram(**fields, image=image)
+
+
+def copy_program_(dsts, srcs) -> None:
+    """Overwrite each resident program of ``dsts`` with its program of
+    ``srcs`` (a swap), tensor by tensor with ``copy_``.  Raises, having
+    written nothing, unless every shape and dtype agrees: a graph captured
+    over ``dsts`` reads exactly these tensors."""
+    pairs = []
+    for dst, src in zip(dsts, srcs, strict=True):
+        if src.image is None:
+            src = dataclasses.replace(src, image=build_exec_image(src))
+        pairs += zip(program_tensors(dst), program_tensors(src))
+    for d, s in pairs:
+        if d.shape != s.shape or d.dtype != s.dtype:
+            raise ValueError(
+                f"cannot swap in a program of other shapes ({tuple(s.shape)} "
+                f"{s.dtype} where {tuple(d.shape)} {d.dtype} is resident): "
+                "build a new executor for another profile")
+    for d, s in pairs:
+        d.copy_(s)
 
 
 def packed_from_arrays(arrays: dict, profile: PlaneProfile,

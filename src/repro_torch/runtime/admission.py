@@ -16,7 +16,10 @@ bit-identical to classifying its batch alone.
 
 The glue runs on the host: requests arrive as CPU tensors
 (``PacketBatch.make_request``) and the executor moves the padded batch to
-the device once.
+the device once.  For an executor on the card admission pads straight into
+one pinned buffer in the flat layout (``pad_to_bucket(..., pin=True)``,
+``core/packets.py``), so the move is one asynchronous copy, and a result
+comes back the same way (``land_on_host``).
 """
 from __future__ import annotations
 
@@ -25,10 +28,17 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.core.packets import PacketBatch
+from repro_torch.core.packets import (
+    PacketBatch,
+    flat_of,
+    flat_size,
+    flat_views,
+    pack_flat,
+    widths,
+)
 
 __all__ = ["bucket_size", "bucket_ladder", "pad_to_bucket", "trim",
-           "coalesce", "split"]
+           "coalesce", "split", "land_on_host"]
 
 
 def bucket_size(batch: int, granularity: int = 1) -> int:
@@ -53,17 +63,44 @@ def bucket_ladder(max_batch: int, granularity: int = 1) -> tuple[int, ...]:
     return tuple(ladder)
 
 
-def pad_to_bucket(pb: PacketBatch, bucket: int) -> PacketBatch:
+def pad_to_bucket(pb: PacketBatch, bucket: int, *,
+                  pin: bool = False) -> PacketBatch:
     """Pad a request batch to ``bucket`` packets with a passthrough tail
     (``ptype = FORWARD`` (0), zero features and intermediates), on the
-    batch's own device."""
+    batch's own device.  ``pin=True`` (a host batch bound for the card)
+    writes batch and tail into one new pinned buffer in the flat layout,
+    even when no padding is needed."""
     B = pb.batch
     if bucket < B:
         raise ValueError(f"bucket {bucket} smaller than batch {B}")
+    if pin:
+        shape = (bucket, *widths(pb))
+        flat = torch.empty(flat_size(*shape), dtype=torch.int32,
+                           pin_memory=True)
+        pack_flat(pb, bucket, flat)
+        return flat_views(flat, *shape)
     if bucket == B:
         return pb
     return pb.map(lambda x: torch.cat(
         [x, x.new_zeros((bucket - B,) + tuple(x.shape[1:]))]))
+
+
+def land_on_host(pb: PacketBatch) -> PacketBatch:
+    """``pb`` on the host: a batch in the flat layout on the card comes back
+    in one copy into pinned memory, any other by field.  The wait for the
+    copy sleeps on a blocking event rather than spinning a core, which the
+    serving threads share with the event loop."""
+    if pb.device.type == "cpu":
+        return pb
+    flat = flat_of(pb)
+    if flat is None:
+        return pb.to("cpu")
+    host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+    host.copy_(flat, non_blocking=True)
+    done = torch.cuda.Event(blocking=True)
+    done.record(torch.cuda.current_stream(flat.device))
+    done.synchronize()
+    return flat_views(host, pb.batch, *widths(pb))
 
 
 def trim(pb: PacketBatch, batch: int) -> PacketBatch:

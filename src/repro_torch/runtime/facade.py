@@ -9,11 +9,18 @@ Port of ``src/repro/runtime/facade.py``.  Two responsibilities:
   (``executors.py``).
 
 Control-plane writes (``install``/``evict``) pass through to executors that
-own a plane (``SingleSwitchExecutor``).
+own a plane (``SingleSwitchExecutor``).  The executors classify through a
+captured CUDA graph per bucket (``graphs.py``), so ``warm`` captures the
+ladder and ``cache_size`` counts the captures, as the reference counts its
+compiled traces.  For an executor on the card a host batch is padded
+straight into one pinned buffer, moved in one copy, and ``run_host`` lands
+the result in pinned memory the same way.
 """
 from __future__ import annotations
 
 from typing import Sequence
+
+import torch
 
 from repro_torch.core.packets import PacketBatch
 from repro_torch.core.plane import PlaneProfile
@@ -21,6 +28,7 @@ from repro_torch.runtime.admission import (
     bucket_ladder,
     bucket_size,
     coalesce,
+    land_on_host,
     pad_to_bucket,
     split,
     trim,
@@ -48,18 +56,25 @@ class DataplaneRuntime:
         """The padded shape a batch of ``batch`` packets executes at."""
         return bucket_size(batch, self.executor.granularity)
 
+    def admit(self, batch: PacketBatch) -> PacketBatch:
+        """``batch`` at its bucket shape, as the executor takes it: pinned
+        and flat for a host batch bound for the card."""
+        dev = getattr(self.executor, "device", None)
+        pin = (dev is not None and torch.device(dev).type == "cuda"
+               and batch.device.type == "cpu")
+        return pad_to_bucket(batch, self.bucket(batch.batch), pin=pin)
+
     def run(self, batch: PacketBatch) -> PacketBatch:
         """Classify a flat request batch of any size.
 
         Pads to the bucket shape on the host (passthrough tail), executes,
-        trims — the result stays on the device.  An empty batch
-        short-circuits: nothing to classify, nothing launched.
+        trims — the result stays on the device, in tensors of its own.  An
+        empty batch short-circuits: nothing to classify, nothing launched.
         """
         B = batch.batch
         if B == 0:
             return batch
-        out = self.executor.classify(pad_to_bucket(batch, self.bucket(B)))
-        return trim(out, B)
+        return trim(self.executor.classify(self.admit(batch)), B)
 
     def run_host(self, batch: PacketBatch) -> PacketBatch:
         """``run`` variant that lands the result on the host (CPU tensors):
@@ -67,14 +82,13 @@ class DataplaneRuntime:
         B = batch.batch
         if B == 0:
             return batch
-        batch = batch.to("cpu")
-        out = self.executor.classify(pad_to_bucket(batch, self.bucket(B)))
-        return trim(out.to("cpu"), B)
+        out = self.executor.classify(self.admit(batch))
+        return trim(land_on_host(out), B)
 
     def warm(self, make_batch, max_batch: int) -> tuple[int, ...]:
         """Drive every admission bucket up to ``bucket(max_batch)`` once
-        through ``run_host`` — first-touch costs (kernel build and load,
-        allocator growth) land here, not mid-stream.  ``make_batch(b)``
+        through ``run_host`` — each bucket's graph is captured here (and the
+        kernels built and loaded), not mid-stream.  ``make_batch(b)``
         builds a ``PacketBatch`` of exactly ``b`` packets.  Returns the
         warmed bucket ladder."""
         ladder = bucket_ladder(max_batch, self.executor.granularity)
@@ -83,6 +97,13 @@ class DataplaneRuntime:
         return ladder
 
     # ------------------------------------------------------------ coalesce
+    @staticmethod
+    def coalesce(batches: Sequence[PacketBatch]
+                 ) -> tuple[PacketBatch, tuple[int, ...]]:
+        """Concatenate per-client batches; returns (flat batch, demux
+        offsets)."""
+        return coalesce(batches)
+
     def run_coalesced(self, batches: Sequence[PacketBatch]) -> list[PacketBatch]:
         """Classify several per-client batches as one admitted batch —
         packet for packet the same as ``[self.run(b) for b in batches]``,
@@ -110,3 +131,8 @@ class DataplaneRuntime:
 
     def swap(self, device_programs) -> None:
         self.executor.swap(device_programs)
+
+    def cache_size(self) -> int:
+        """Captured classifies across the executor — with admission on, one
+        per bucket (and mode)."""
+        return self.executor.cache_size()

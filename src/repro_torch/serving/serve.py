@@ -169,3 +169,7 @@ class ZooServer:
         idx = np.minimum(np.searchsorted(bounds, u), len(vids_sorted) - 1)
         vids = np.asarray(vids_sorted, np.int32)[idx]
         return self.classify(features, mid=mid, vid=vids), vids
+
+    def cache_size(self) -> int:
+        """Captured classifies of the executor (one per admission bucket)."""
+        return self.runtime.cache_size()

@@ -33,7 +33,11 @@ from repro_torch.core import topology as ttopo
 from repro_torch.core import translator as ttr
 from repro_torch.core.packets import PacketBatch, PacketType
 from repro_torch.core import plane as tp
-from repro_torch.core.plane import SwitchEngine, install_program
+from repro_torch.core.plane import (
+    SwitchEngine,
+    install_program,
+    program_tensors,
+)
 from repro_torch.runtime import DataplaneRuntime, SequentialPathExecutor
 from test_torch_plane import (
     assert_batches_equal,
@@ -267,8 +271,14 @@ def test_sequential_executor_guards(zoo_path):
     assert ex.granularity == 1 and ex.mode == "ref"
     with pytest.raises(ValueError, match="replan"):
         ex.swap(tdps[:-1])
+    ptrs = [x.data_ptr() for p in ex.programs for x in program_tensors(p)]
     ex.swap(list(reversed(tdps)))
-    assert ex.programs[0] is tdps[-1]
+    # swap writes the executor's resident programs in place
+    for got, want in zip(ex.programs, reversed(tdps)):
+        assert all(torch.equal(x, y) for x, y in
+                   zip(program_tensors(got), program_tensors(want)))
+    assert ptrs == [x.data_ptr() for p in ex.programs
+                    for x in program_tensors(p)]
     with pytest.raises(ValueError, match="unknown classify mode"):
         SequentialPathExecutor(tdps, n_classes=8, mode="interpret")
 

@@ -20,7 +20,11 @@ version, the four staged kernels at B 1, B just past a block's packets,
 T 1, 3 and 33, H 1 and 16, L 13, P 1 and 9, C 33, and ``tcam_match`` on
 rows of length 0, 1, 8, 9 and E (hit at the last valid entry, no hit,
 shift 31 and 32).  ``decode_attn`` also runs on two streams at once, its
-launches of both in flight together.
+launches of both in flight together.  The graph cache (one captured CUDA
+graph per admission bucket): replay against eager and the twin on the 204
+draws in three modes, with exact launches per replay; install, evict and
+swap between replays in place; two threads replaying at once; a capture
+that fails raises and keeps no entry.
 """
 import dataclasses
 
@@ -32,10 +36,12 @@ from repro_torch.core import distributed_plane as tdp
 from repro_torch.core import mlmodels as tml
 from repro_torch.core import planner as tpl
 from repro_torch.core.packets import PacketBatch, PacketType
-from repro_torch.core.plane import PlaneProfile, SwitchEngine
+from repro_torch.core.plane import PlaneProfile, SwitchEngine, program_tensors
 from repro_torch.core.topology import fat_tree
 from repro_torch.core.translator import translate
+from repro_torch.data import conformance as draws
 from repro_torch.data import load_dataset
+from repro_torch.data.conformance import N_CASES
 from repro_torch.kernels import ref, tiling
 from repro_torch.configs import smoke_config
 from repro_torch.kernels.classify_fused import classify_fused
@@ -45,7 +51,11 @@ from repro_torch.kernels.svm_lookup import svm_lookup, svm_lookup_plain
 from repro_torch.kernels.tcam_match import tcam_match, tcam_match_plain
 from repro_torch.kernels.tree_walk import tree_walk, tree_walk_plain
 from repro_torch.models import transformer
-from repro_torch.runtime import DataplaneRuntime, SequentialPathExecutor
+from repro_torch.runtime import (
+    DataplaneRuntime,
+    SequentialPathExecutor,
+    SingleSwitchExecutor,
+)
 from repro_torch.serving import ZooServer
 
 pytestmark = pytest.mark.gpu
@@ -581,92 +591,157 @@ def test_classify_fused_block_mixes(cuda, blocks, B, T):
         assert not got[1].any() and not got[2].any()
 
 
-# The conformance draws of tests/test_conformance.py (N_CASES, _profile,
-# _fit_random_model, _draw_zoo, _draw_traffic), drawn with the port's own
-# models, translator and install: that module imports the JAX package, and
-# tests/test_torch_plane.py shows the port draws the same tables from the
-# same rng stream.
-N_CASES = {1: 72, 4: 72, 8: 60}
-SIZES = (1, 2, 3, 5, 7, 12, 17, 24, 33, 48)
-
-
-def _conf_profile(V):
-    return PlaneProfile(max_features=10, max_trees=3, max_layers=6,
-                        max_entries_per_layer=32, max_leaves=32,
-                        max_classes=8, max_hyperplanes=8, max_versions=V)
-
-
-def _conf_model(kind, rng, seed):
-    n_classes = int(rng.integers(2, 5))
-    X = rng.integers(0, 256, (60, 10)).astype(np.int32)
-    y = rng.integers(0, n_classes, 60).astype(np.int64)
-    y[:n_classes] = np.arange(n_classes)
-    if kind == "dt":
-        return tml.DecisionTree(max_depth=int(rng.integers(2, 5)),
-                                max_leaf_nodes=int(rng.integers(6, 20))
-                                ).fit(X, y)
-    if kind == "rf":
-        return tml.RandomForest(n_estimators=int(rng.integers(2, 4)),
-                                max_depth=int(rng.integers(2, 4)),
-                                max_leaf_nodes=10, random_state=seed).fit(X, y)
-    return tml.LinearSVM(epochs=8, random_state=seed).fit(X, y)
-
-
-def _conf_case(V, case, engine):
-    seed = 7919 * V + case
-    rng = np.random.default_rng(seed)
-    progs = []
-    for v in rng.choice(V, size=int(rng.integers(1, min(V, 3) + 1)),
-                        replace=False):
-        kind = str(rng.choice(["dt", "rf", "svm"]))
-        progs.append(translate(_conf_model(kind, rng, seed), vid=int(v)))
-    packed = engine.empty()
-    for prog in progs:
-        packed = engine.install(packed, prog)
-    prof = engine.profile
-    B = int(SIZES[rng.integers(len(SIZES))])
-    X = rng.integers(0, 256, (B, 10)).astype(np.int32)
-    pick = rng.integers(0, len(progs), B)
-    mids = np.asarray([progs[c].mid for c in pick], np.int32)
-    pvids = np.asarray([progs[c].vid for c in pick], np.int32)
-    bad = rng.random(B) < 0.2
-    bad_vids = rng.choice(np.asarray([-1, V, V + 3], np.int32), B)
-    if len(progs) < V:
-        empty = np.setdiff1d(np.arange(V, dtype=np.int32),
-                             np.asarray([p.vid for p in progs], np.int32))
-        bad_vids = np.where(rng.random(B) < 0.5, rng.choice(empty, B),
-                            bad_vids)
-    pb = PacketBatch.make_request(
-        X, mid=mids, vid=np.where(bad, bad_vids, pvids),
-        max_features=prof.max_features, n_trees=prof.max_trees,
-        n_hyperplanes=prof.max_hyperplanes)
-    # passthrough mix: FORWARD / RESPONSE packets with intermediates
-    ptype = np.where(rng.random(B) < 0.2, PacketType.FORWARD,
-                     PacketType.REQUEST)
-    ptype = np.where(rng.random(B) < 0.1, PacketType.RESPONSE, ptype)
-    thru = ptype != PacketType.REQUEST
-    T, H = prof.max_trees, prof.max_hyperplanes
-    pb = dataclasses.replace(
-        pb, ptype=torch.from_numpy(ptype.astype(np.int32)),
-        codes=torch.from_numpy(np.where(
-            thru[:, None], rng.integers(0, 2**10, (B, T)), 0).astype(np.int32)),
-        svm_acc=torch.from_numpy(np.where(
-            thru[:, None], rng.integers(-50, 50, (B, H)), 0).astype(np.int32)),
-        rslt=torch.from_numpy(np.where(
-            thru, rng.integers(0, 8, B), -1).astype(np.int32)))
-    return packed, pb
-
-
 @pytest.mark.parametrize("V", sorted(N_CASES))
 def test_classify_fused_on_the_conformance_draws(cuda, V):
     """All 204 draws: the engine on the card (one classify_fused launch a
     classify) equals the twin engine bit for bit."""
-    engine = SwitchEngine(_conf_profile(V), device=cuda)
-    twin = SwitchEngine(_conf_profile(V), mode="ref", device=cuda)
+    engine = SwitchEngine(draws.profile(V), device=cuda)
+    twin = SwitchEngine(draws.profile(V), mode="ref", device=cuda)
     for case in range(N_CASES[V]):
-        packed, pb = _conf_case(V, case, engine)
+        packed, pb = draws.draw_case(V, case, engine)
         out, n = _launched(classify_fused, lambda: engine.classify(packed, pb))
         assert n == 1
         want = twin.classify(packed, pb)
         for f in ("rslt", "codes", "svm_acc"):
             assert torch.equal(getattr(out, f), getattr(want, f)), (case, f)
+
+
+# ------------------------------------------------- the graph cache (slice 7)
+GRAPH_MODES = {None: {"classify_fused": 1},
+               "unfused": {"tree_walk": 1, "forest_vote": 1, "svm_lookup": 1},
+               "layerwise": {"tcam_match": 6, "forest_vote": 1,
+                             "svm_lookup": 1}}
+
+
+def _launch_counts():
+    return {f.__name__: f.launches for f in (
+        classify_fused, tree_walk, tcam_match, forest_vote, svm_lookup)}
+
+
+@pytest.mark.parametrize("mode", list(GRAPH_MODES), ids=str)
+@pytest.mark.parametrize("V", sorted(N_CASES))
+def test_graph_replay_equals_eager_on_the_draws(cuda, V, mode):
+    """All 204 draws: a replay of the bucket's captured graph equals the
+    eager classify and the twin engine bit for bit, with exactly the mode's
+    launches per replay, and no draw adds a cache entry."""
+    prof = draws.profile(V)
+    maker = SwitchEngine(prof, device=cuda)
+    twin = SwitchEngine(prof, mode="ref", device=cuda)
+    graph = DataplaneRuntime(SingleSwitchExecutor(prof, mode=mode))
+    eager = DataplaneRuntime(SingleSwitchExecutor(prof, mode=mode,
+                                                  graphs=False))
+
+    def make(b):
+        return PacketBatch.make_request(
+            np.zeros((b, prof.max_features), np.int32),
+            max_features=prof.max_features, n_trees=prof.max_trees,
+            n_hyperplanes=prof.max_hyperplanes)
+    ladder = graph.warm(make, max(draws.SIZES))
+    want_n = {k: GRAPH_MODES[mode].get(k, 0) for k in _launch_counts()}
+    for case in range(N_CASES[V]):
+        packed, pb = draws.draw_case(V, case, maker)
+        graph.swap(packed)
+        eager.swap(packed)
+        before = _launch_counts()
+        out = graph.run(pb)
+        torch.cuda.synchronize()
+        assert {k: n - before[k] for k, n in _launch_counts().items()} == \
+            want_n
+        want, ref_out = eager.run(pb), twin.classify(packed, pb)
+        for f in ("rslt", "codes", "svm_acc"):
+            assert torch.equal(getattr(out, f), getattr(want, f)), (case, f)
+            assert torch.equal(getattr(out, f), getattr(ref_out, f))
+    assert graph.cache_size() == len(ladder)
+
+
+def test_install_evict_swap_between_replays_in_place(cuda, satdap_zoo):
+    """Install, evict and swap between replays of one bucket: the next
+    replay answers with the new tables, no resident tensor moves, and the
+    cache keeps its entry."""
+    models, X = satdap_zoo
+    zoo = ZooServer(PROFILE)
+    for vid, m in models.items():
+        zoo.install(m, vid=vid)
+    twin = SwitchEngine(PROFILE, mode="ref", device=cuda)
+    ptrs = [x.data_ptr() for x in program_tensors(zoo.packed)]
+    vid = np.arange(256, dtype=np.int32) % 4
+    mid = np.asarray([(0, 1, 2, 0)[v] for v in vid], np.int32)
+    pb = zoo.make_request(X[np.arange(256) % len(X)], mid=mid, vid=vid)
+    first = zoo.runtime.run(pb)
+    writes = (lambda: zoo.install(translate(models[0], vid=3), vid=3),
+              lambda: zoo.evict(vid=3),
+              lambda: zoo.evict(vid=1),
+              lambda: zoo.runtime.swap(zoo.engine.empty()))
+    for write in writes:
+        write()
+        out = zoo.runtime.run(pb)
+        want = twin.classify(zoo.packed, pb)
+        for f in ("rslt", "codes", "svm_acc"):
+            assert torch.equal(getattr(out, f), getattr(want, f)), f
+    assert (out.rslt[pb.ptype.to(cuda) == 1] == -1).all()
+    assert not torch.equal(first.rslt, out.rslt)
+    assert [x.data_ptr() for x in program_tensors(zoo.packed)] == ptrs
+    assert zoo.cache_size() == 1
+
+
+def test_concurrent_replays_from_two_threads(cuda, satdap_zoo):
+    """Two threads replaying the same graphs at once through ``run_host``:
+    every answer is the twin's."""
+    import threading
+
+    models, X = satdap_zoo
+    zoo = ZooServer(PROFILE)
+    for vid, m in models.items():
+        zoo.install(m, vid=vid)
+    twin = SwitchEngine(PROFILE, mode="ref", device=cuda)
+    rng = np.random.default_rng(9)
+    cases = []
+    for B in (7, 64, 300, 1000):
+        vid = rng.integers(0, 4, B).astype(np.int32)
+        mid = np.asarray([(0, 1, 2, 0)[v] for v in vid], np.int32)
+        pb = zoo.make_request(X[rng.integers(0, len(X), B)], mid=mid, vid=vid)
+        cases.append((pb, twin.classify(zoo.packed, pb).rslt.cpu()))
+    errors = []
+
+    def worker(order):
+        try:
+            for _ in range(20):
+                for pb, want in order:
+                    if not torch.equal(zoo.runtime.run_host(pb).rslt, want):
+                        errors.append(pb.batch)
+        except Exception as e:   # reported below
+            errors.append(e)
+    threads = [threading.Thread(target=worker, args=(o,))
+               for o in (cases, cases[::-1])]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    assert not any(th.is_alive() for th in threads)
+    assert errors == []
+    assert zoo.cache_size() == 4
+
+
+def test_failing_capture_raises_and_keeps_no_entry(cuda, monkeypatch):
+    """A classify that reads the host while its graph is captured: the
+    capture raises, the cache keeps no entry, and the next call raises
+    again (nothing gives way to eager)."""
+    from repro_torch.runtime import executors
+
+    real = executors._classify_impl
+
+    def syncing(packed, pb, **kw):
+        int(pb.vid.sum())
+        return real(packed, pb, **kw)
+    zoo = ZooServer(draws.profile(1))
+    monkeypatch.setattr(executors, "_classify_impl", syncing)
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            zoo.classify(np.zeros((3, draws.N_FEATURES), np.int32), mid=0,
+                         vid=0)
+        assert zoo.cache_size() == 0
+    monkeypatch.setattr(executors, "_classify_impl", real)
+    torch.cuda.synchronize()
+    assert (zoo.classify(np.zeros((3, draws.N_FEATURES), np.int32), mid=0,
+                         vid=0) == -1).all()
+    assert zoo.cache_size() == 1

@@ -1,0 +1,400 @@
+"""The port's graph cache (``runtime/graphs.py``) against the JAX package's
+jit cache, on the CPU.
+
+On the CPU a cache entry runs its classify eagerly on the same static
+buffers a CUDA graph would read, so what runs here is the bucketing, the
+staging, the in-place slot writes and the bookkeeping; the capture itself
+is the card's (``tests/test_torch_gpu.py``, ``chip_smoke.py`` phase 10).
+The port's ``cache_size`` must count what the JAX runtime's counts on the
+same ragged sizes, stay put on replays and across ``swap``, install and
+evict, and every answer must equal the JAX ``SwitchEngine(mode="ref")``
+bit for bit.
+"""
+import dataclasses
+import sys
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import mlmodels as jml
+from repro.core.plane import PlaneProfile as JaxProfile
+from repro.core.plane import SwitchEngine as JaxEngine
+from repro.runtime import DataplaneRuntime as JaxRuntime
+from repro.serving import ZooServer as JaxZooServer
+from repro_torch.core import mlmodels as tml
+from repro_torch.core import plane as tp
+from repro_torch.core.packets import (
+    PacketBatch,
+    PacketType,
+    flat_of,
+    flat_size,
+    flat_views,
+    pack_flat,
+)
+from repro_torch.core.translator import translate
+from repro_torch.runtime import (
+    DataplaneRuntime,
+    SequentialPathExecutor,
+    SingleSwitchExecutor,
+    bucket_ladder,
+)
+from repro_torch.serving import ZooServer
+from test_torch_plane import assert_batches_equal, port_packed, port_profile
+
+SIZES = (1, 7, 63, 64, 65)
+FIELDS = ("packet_id", "ptype", "mid", "vid", "rslt", "rid", "features",
+          "codes", "svm_acc")
+
+
+def _models(ml, Xtr, ytr):
+    return {0: ml.DecisionTree(max_depth=6, max_leaf_nodes=40).fit(Xtr, ytr),
+            1: ml.RandomForest(n_estimators=3, max_depth=5,
+                               max_leaf_nodes=24).fit(Xtr, ytr),
+            2: ml.LinearSVM(epochs=40).fit(Xtr, ytr)}
+
+
+MIDS = {0: 0, 1: 1, 2: 2, 3: 0}
+
+
+# narrow enough that a classify on the CPU is cheap, wide enough for the
+# satdap models below (36 features, depth 6, 40 leaves, 6 hyperplanes)
+PROFILE = JaxProfile(max_features=36, max_trees=4, max_layers=8,
+                     max_entries_per_layer=64, max_leaves=64, max_classes=8,
+                     max_hyperplanes=8, max_versions=4)
+
+
+@pytest.fixture(scope="module")
+def zoos(satdap):
+    """The zoo (DT, RF, SVM; slot 3 empty) in the JAX ``ZooServer``; the
+    port's zoos carry its tables (``_port_zoo``)."""
+    Xtr, ytr, Xte, _ = satdap
+    jzoo = JaxZooServer(PROFILE)
+    for vid, m in _models(jml, Xtr, ytr).items():
+        jzoo.install(m, vid=vid)
+    return jzoo, Xte
+
+
+@pytest.fixture(scope="module")
+def cases(zoos):
+    """Ragged traffic and the JAX ``SwitchEngine(mode="ref")``'s answer to
+    it, by batch size."""
+    jzoo, X = zoos
+    oracle = JaxEngine(jzoo.profile, mode="ref")
+    tzoo = _port_zoo(jzoo, graphs=False)
+    out = {}
+    for B in SIZES + (130,):
+        jpb, tpb = _batches(jzoo, tzoo, _traffic(X, B, 100 + B))
+        out[B] = tpb, oracle.classify(jzoo.packed, jpb)
+    return out
+
+
+def _port_zoo(jzoo, mode=None, **kw):
+    """A port ``ZooServer`` holding the JAX zoo's tables (resident)."""
+    jprof = jzoo.profile
+    ex = SingleSwitchExecutor(port_profile(jprof), mode=mode, device="cpu",
+                              packed=port_packed(jzoo.packed, jprof), **kw)
+    return ZooServer(port_profile(jprof), executor=ex)
+
+
+def _traffic(X, B, seed):
+    """B requests over the four slots, a fifth FORWARD passthrough packets
+    with intermediates; the same batch for both packages (numpy)."""
+    rng = np.random.default_rng(seed)
+    vid = rng.integers(0, 4, B).astype(np.int32)
+    mid = np.asarray([MIDS[v] for v in vid], np.int32)
+    feats = X[np.arange(B) % X.shape[0]]
+    fwd = rng.random(B) < 0.2
+    return dict(features=feats, mid=mid, vid=vid, fwd=fwd,
+                codes=rng.integers(1, 2**20, B).astype(np.uint32),
+                acc=rng.integers(-99, 99, B).astype(np.int32),
+                rslt=rng.integers(0, 9, B).astype(np.int32))
+
+
+def _batches(jzoo, tzoo, t):
+    """The traffic as a JAX batch and as the port's."""
+    jpb = jzoo.make_request(t["features"], mid=t["mid"], vid=t["vid"])
+    tpb = tzoo.make_request(t["features"], mid=t["mid"], vid=t["vid"])
+    fwd = t["fwd"]
+    ptype = np.where(fwd, PacketType.FORWARD, PacketType.REQUEST)
+    T, H = jpb.codes.shape[1], jpb.svm_acc.shape[1]
+    codes = np.where(fwd[:, None], t["codes"][:, None], 0).astype(np.uint32)
+    codes = np.broadcast_to(codes, (len(fwd), T))
+    acc = np.broadcast_to(np.where(fwd[:, None], t["acc"][:, None], 0),
+                          (len(fwd), H)).astype(np.int32)
+    rslt = np.where(fwd, t["rslt"], -1).astype(np.int32)
+    jpb = dataclasses.replace(jpb, ptype=ptype.astype(np.int32),
+                              codes=codes, svm_acc=acc, rslt=rslt)
+    tpb = dataclasses.replace(
+        tpb, ptype=torch.from_numpy(ptype.astype(np.int32)),
+        codes=torch.from_numpy(codes.view(np.int32).copy()),
+        svm_acc=torch.from_numpy(acc.copy()), rslt=torch.from_numpy(rslt))
+    return jpb, tpb
+
+
+def test_cache_size_counts_the_buckets_as_the_jax_runtime(zoos):
+    """Sizes 1, 7, 63, 64, 65 land in buckets {1, 8, 64, 128}: the port's
+    cache holds one entry per bucket, as many as the JAX runtime's jit
+    cache holds traces on the same sizes."""
+    jzoo, X = zoos
+    jrt = JaxRuntime.for_profile(jzoo.profile)
+    tzoo = _port_zoo(jzoo)
+    for B in SIZES:
+        t = _traffic(X, B, B)
+        jpb, tpb = _batches(jzoo, tzoo, t)
+        jrt.run(jpb)
+        tzoo.runtime.run(tpb)
+    keys = tzoo.executor._cache.keys()
+    assert sorted(k[0] for k in keys) == [1, 8, 64, 128]
+    assert tzoo.cache_size() == jrt.cache_size() == 4
+
+
+def test_replaying_every_size_adds_nothing(zoos):
+    """Every size within the warmed buckets replays an entry; warming the
+    ladder adds exactly the buckets not yet seen."""
+    jzoo, X = zoos
+    tzoo = _port_zoo(jzoo)
+    for B in SIZES:
+        tzoo.classify(X[:B], mid=0, vid=0)
+    for B in (1, 5, 6, 8, 33, 50, 63, 64, 65, 100, 127, 128):
+        tzoo.classify(X[np.arange(B) % len(X)], mid=0, vid=0)
+    assert tzoo.cache_size() == 4
+
+    def make(b):
+        return tzoo.make_request(np.zeros((b, 4), np.int32))
+    ladder = tzoo.runtime.warm(make, 128)
+    assert ladder == bucket_ladder(128)
+    assert tzoo.cache_size() == len(ladder) == 8
+    tzoo.runtime.warm(make, 128)
+    assert tzoo.cache_size() == 8
+
+
+@pytest.mark.parametrize("mode", [None, "cuda", "unfused", "unfused-cuda",
+                                  "layerwise", "layerwise-cuda"])
+def test_graph_cache_path_equals_jax_ref(zoos, cases, mode):
+    """``run`` and ``run_host`` through the cache, at ragged sizes, in every
+    mode (twins, and the kernels' plain versions on the exec image), equal
+    the JAX ``SwitchEngine(mode="ref")`` on rslt, codes and svm_acc;
+    passthrough packets come out whole."""
+    jzoo, _X = zoos
+    tzoo = _port_zoo(jzoo, mode=mode)
+    for B, (tpb, want) in cases.items():
+        for out in (tzoo.runtime.run(tpb), tzoo.runtime.run_host(tpb)):
+            assert out.batch == B
+            assert_batches_equal(out, want, what=f"mode={mode} B={B}")
+            fwd = tpb.ptype == PacketType.FORWARD
+            for f in FIELDS:
+                assert torch.equal(getattr(out, f)[fwd], getattr(tpb, f)[fwd])
+    assert tzoo.cache_size() == 5          # buckets 1, 8, 64, 128, 256
+
+
+def test_install_and_evict_show_in_the_next_run_in_place(zoos, satdap):
+    """An install into the empty slot and an evict, each between two runs
+    of the same bucket: the next run answers with the new tables (equal to
+    the JAX zoo given the same writes), no resident tensor moves, and the
+    cache keeps its one entry."""
+    jzoo0, X = zoos
+    Xtr, ytr, _, _ = satdap
+    jzoo = JaxZooServer(PROFILE)
+    tzoo = _port_zoo(jzoo0)
+    for vid, m in _models(jml, Xtr, ytr).items():
+        jzoo.install(m, vid=vid)
+    oracle = JaxEngine(jzoo.profile, mode="ref")
+    ptrs = [x.data_ptr() for x in tp.program_tensors(tzoo.packed)]
+    jpb, tpb = _batches(jzoo, tzoo, _traffic(X, 64, 3))
+    on3 = (tpb.vid == 3) & (tpb.ptype == PacketType.REQUEST)
+    first = tzoo.runtime.run(tpb)
+    assert (first.rslt[on3] == -1).all()
+    dt = dict(max_depth=5, max_leaf_nodes=30)
+    writes = [
+        (lambda: jzoo.install(jml.DecisionTree(**dt).fit(Xtr, ytr), vid=3),
+         lambda: tzoo.install(tml.DecisionTree(**dt).fit(Xtr, ytr), vid=3)),
+        (lambda: jzoo.evict(vid=0), lambda: tzoo.evict(vid=0)),
+        (lambda: jzoo.evict(vid=3, kind="tree"),
+         lambda: tzoo.evict(vid=3, kind="tree"))]
+    outs = []
+    for jwrite, twrite in writes:
+        jwrite()
+        twrite()
+        outs.append(tzoo.runtime.run(tpb))
+        assert_batches_equal(outs[-1], oracle.classify(jzoo.packed, jpb))
+    assert (outs[0].rslt[on3] >= 0).all()
+    assert (outs[1].rslt[(tpb.vid == 0) & (tpb.ptype == 1)] == -1).all()
+    assert torch.equal(outs[2].rslt[on3], first.rslt[on3])
+    assert [x.data_ptr() for x in tp.program_tensors(tzoo.packed)] == ptrs
+    assert tzoo.cache_size() == 1
+
+
+def test_run_n_is_not_overwritten_by_run_n_plus_1(zoos):
+    """Two runs at one bucket: the first result is a copy of its own, on
+    the device path and the host path alike."""
+    jzoo, X = zoos
+    tzoo = _port_zoo(jzoo)
+    rt = tzoo.runtime
+    _, a = _batches(jzoo, tzoo, _traffic(X, 60, 1))
+    _, b = _batches(jzoo, tzoo, _traffic(X, 61, 2))
+    for run in (rt.run, rt.run_host):
+        first = run(a)
+        kept = first.map(lambda x: x.clone())
+        second = run(b)
+        for f in FIELDS:
+            assert torch.equal(getattr(first, f), getattr(kept, f)), f
+        assert not torch.equal(first.rslt[:60], second.rslt[:60])
+    assert tzoo.cache_size() == 1
+
+
+def test_swap_keeps_the_cache_and_the_addresses(zoos, satdap):
+    """``swap`` copies a program into the resident one: the cache keeps its
+    entries, no data_ptr moves, and the next run answers with the new
+    program; a program of another profile is refused with nothing
+    written."""
+    jzoo, X = zoos
+    Xtr, ytr, _, _ = satdap
+    tzoo = _port_zoo(jzoo)
+    for B in SIZES:
+        tzoo.classify(X[:B], mid=0, vid=0)
+    ptrs = [x.data_ptr() for x in tp.program_tensors(tzoo.packed)]
+    eng = tp.SwitchEngine(tzoo.profile, device="cpu")
+    other = eng.install(eng.empty(), translate(
+        tml.DecisionTree(max_depth=3).fit(Xtr, ytr), vid=0))
+    tzoo.runtime.swap(other)
+    assert tzoo.cache_size() == 4
+    assert [x.data_ptr() for x in tp.program_tensors(tzoo.packed)] == ptrs
+    pb = tzoo.make_request(X[:63], mid=0, vid=0)
+    want = tp.SwitchEngine(tzoo.profile, device="cpu", mode="ref").classify(
+        other, pb)
+    assert torch.equal(tzoo.runtime.run(pb).rslt, want.rslt)
+    small = tp.empty_program(dataclasses.replace(tzoo.profile,
+                                                 max_versions=2), "cpu")
+    before = [x.clone() for x in tp.program_tensors(tzoo.packed)]
+    with pytest.raises(ValueError, match="other shapes"):
+        tzoo.runtime.swap(small)
+    assert all(torch.equal(x, y) for x, y in
+               zip(tp.program_tensors(tzoo.packed), before))
+
+
+def test_executor_holds_a_program_of_its_own(zoos, satdap):
+    """The executor copies the program it is given: its in-place writes
+    leave the caller's program as it was."""
+    jzoo, _X = zoos
+    Xtr, ytr, _, _ = satdap
+    given = port_packed(jzoo.packed, jzoo.profile)
+    kept = [x.clone() for x in tp.program_tensors(given)]
+    ex = SingleSwitchExecutor(port_profile(jzoo.profile), device="cpu",
+                              packed=given)
+    ex.install(translate(tml.DecisionTree(max_depth=3).fit(Xtr, ytr),
+                         vid=3))
+    ex.evict(vid=0)
+    assert all(torch.equal(x, y)
+               for x, y in zip(tp.program_tensors(given), kept))
+    assert not torch.equal(ex.packed.pred_enable, given.pred_enable)
+
+
+def test_eager_executors_keep_no_cache(zoos):
+    """``graphs=False`` classifies eagerly, with the same answers and a
+    ``cache_size`` of 0 (the reference's ``jit=False``)."""
+    jzoo, X = zoos
+    graph, eager = _port_zoo(jzoo), _port_zoo(jzoo, graphs=False)
+    for B in SIZES:
+        _, pb = _batches(jzoo, graph, _traffic(X, B, B))
+        a, b = graph.runtime.run(pb), eager.runtime.run(pb)
+        for f in FIELDS:
+            assert torch.equal(getattr(a, f), getattr(b, f))
+    assert graph.cache_size() == 4 and eager.cache_size() == 0
+    path = SequentialPathExecutor([graph.packed, graph.packed],
+                                  n_classes=8, graphs=False)
+    assert path.cache_size() == 0
+
+
+def test_sequential_path_through_the_cache(zoos):
+    """The path executor caches one entry per (bucket, mode, hops): a hop
+    chain through the cache equals the eager chain, and ``swap`` keeps the
+    entries."""
+    jzoo, X = zoos
+    tzoo = _port_zoo(jzoo)
+    hops = [tzoo.packed, tp.empty_program(tzoo.profile, "cpu")]
+    for mode in (None, "layerwise"):
+        rt = DataplaneRuntime(SequentialPathExecutor(hops, n_classes=8,
+                                                     mode=mode))
+        eager = DataplaneRuntime(SequentialPathExecutor(
+            hops, n_classes=8, mode=mode, graphs=False))
+        for B in SIZES:
+            _, pb = _batches(jzoo, tzoo, _traffic(X, B, B))
+            a, b = rt.run(pb), eager.run(pb)
+            for f in FIELDS:
+                assert torch.equal(getattr(a, f), getattr(b, f))
+        keys = rt.executor._cache.keys()
+        assert len(keys) == 4 and {k[-2:] for k in keys} == {
+            (rt.executor.mode, 2)}
+        rt.swap(list(reversed(hops)))
+        assert rt.cache_size() == 4
+
+
+def test_flat_layout_round_trips():
+    """``pack_flat`` pads into one buffer whose views are the batch;
+    ``flat_of`` finds that buffer under exactly such a batch."""
+    rng = np.random.default_rng(0)
+    pb = PacketBatch.make_request(rng.integers(0, 256, (5, 7)), mid=1,
+                                  vid=rng.integers(0, 3, 5), n_trees=3,
+                                  n_hyperplanes=2)
+    flat = torch.full((flat_size(8, 7, 3, 2),), 99, dtype=torch.int32)
+    pack_flat(pb, 8, flat)
+    padded = flat_views(flat, 8, 7, 3, 2)
+    assert flat_of(padded) is flat
+    for f in FIELDS:
+        got = getattr(padded, f)
+        assert torch.equal(got[:5], getattr(pb, f))
+        assert not got[5:].any()
+    assert flat_of(pb) is None
+    assert flat_of(padded.map(lambda x: x[:5])) is None
+    assert flat_of(padded.map(lambda x: x.clone())) is None
+
+
+def test_concurrent_runs_and_writes_never_tear(zoos, satdap):
+    """Eight threads run the same bucket while a ninth installs and evicts
+    slot 3 in place, with the interpreter switching threads every 10 us:
+    every answer is the zoo's with the slot either empty or installed,
+    never a mix."""
+    jzoo, X = zoos
+    Xtr, ytr, _, _ = satdap
+    tzoo = _port_zoo(jzoo)
+    prog = translate(tml.DecisionTree(max_depth=4).fit(Xtr, ytr), vid=3)
+    _, pb = _batches(jzoo, tzoo, _traffic(X, 50, 9))
+    empty = tzoo.runtime.run_host(pb).rslt.clone()
+    tzoo.install(prog, vid=3)
+    full = tzoo.runtime.run_host(pb).rslt.clone()
+    assert not torch.equal(empty, full)
+    errors, stop = [], threading.Event()
+
+    def reader():
+        try:
+            for _ in range(15):
+                got = tzoo.runtime.run_host(pb).rslt
+                if not (torch.equal(got, empty) or torch.equal(got, full)):
+                    errors.append("torn")
+        except Exception as e:   # reported below
+            errors.append(e)
+
+    def writer():
+        while not stop.is_set():
+            tzoo.evict(vid=3)
+            tzoo.install(prog, vid=3)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        w = threading.Thread(target=writer)
+        readers = [threading.Thread(target=reader) for _ in range(8)]
+        w.start()
+        for th in readers:
+            th.start()
+        for th in readers:
+            th.join(timeout=120)
+        stop.set()
+        w.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not w.is_alive() and not any(th.is_alive() for th in readers)
+    assert errors == []
+    assert tzoo.cache_size() == 1
