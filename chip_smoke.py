@@ -110,8 +110,26 @@ JAX package.  Phases, each fatal on failure:
              of that rate, each load with the server's own split, a
              dispatch's steps on its thread, the event loop's lag and the
              garbage collector's pauses.
+12. fleet  — the zoo of phase 5 deployed by ``FleetRuntime`` over
+             ``fat_tree(4)`` between two pods on switches of 40 stage
+             slots (5 hosting hops), on its hop pool: B 4096 in the fused
+             and layerwise modes == ``mode="ref"`` with hops x 1 and
+             hops x (L + 2) launches a replay, ms a batch; a retarget to
+             the 3-hop deployment of 60-slot switches and back (one graph
+             per hosting count, none added on the revisit, no resident
+             ``data_ptr`` moved); the 8 seeded fault schedules of the
+             conformance lane (``repro_torch.data.conformance``) served
+             live through ``fleet.serving()`` in both modes, the kills
+             landing mid-phase, every answer == ``mode="ref"``, each heal
+             counted and the dead switches off the new path; the
+             closed-loop rate through the fleet's front, then ``open_loop``
+             at 0.5 of it with a hosting core switch killed 1 s in: no
+             errors, every answer == ``mode="ref"``, the heal split into
+             replan / drain / reinstall, the first post-heal dispatch,
+             p50/p99 before and after; the src's edge switch killed:
+             ``heal()`` raises and ``heal_failures == 1``.
 
-Each main path (5, 6, 7, 8, 11) runs with every kernel's launch count set
+Each main path (5, 6, 7, 8, 11, 12) runs with every kernel's launch count set
 to 0 just before it and read just after; a kernel of the path that never
 launched fails the run.  A replayed graph adds the launches its capture
 counted.  Output: a ``paths`` JSON line, a ``kernels`` JSON line (with
@@ -155,6 +173,11 @@ KERNEL_FN = {                    # each wrapper's __global__ function
     "tcam_match": "tcam_match_kernel", "forest_vote": "forest_vote_kernel",
     "svm_lookup": "svm_lookup_kernel", "decode_attn": "attn_"}
 LOADS = (0.25, 0.5, 0.75, 1.0)   # open-loop offered load / closed-loop rate
+FLEET_SRC, FLEET_DST = "h0_0_0", "h2_0_0"   # phase 12: two pods apart
+FLEET_STAGES = 40                # stage slots a switch: the zoo on 5 hops
+FLEET_STAGES_ALT = 60            # the retarget's other deployment: 3 hops
+FLEET_LOAD = 0.5                 # open-loop load of the kill run / closed rate
+FLEET_SECONDS = 2.0              # arrivals scheduled in the kill run
 LOAD_SECONDS = 2.0               # arrivals scheduled per offered load
 CLIENTS = 64                     # closed-loop clients of phase 11
 LM_ARCH = "internlm2-1.8b"
@@ -2258,6 +2281,350 @@ def fronts_phase(prof, seed, zoo, test_sets, device):
     return {"closed_loop_requests_per_s": rate, "open_loop": rows}
 
 
+def fleet_kill_schedule(fleet, draw, oracle_engine, mode):
+    """One fault schedule of the topology lane (``draw``: a ``FleetCase``)
+    served live through ``fleet.serving()``, the kills landing while the
+    "during" phase is in flight; every phase held to ``mode="ref"``.
+    Returns the control counters."""
+    import asyncio
+
+    import numpy as np
+    from repro_torch.core.packets import u32_from_bits
+
+    async def serve():
+        outs = []
+        async with fleet.serving(probe_interval_s=0.005):
+            outs.append(await fleet.submit_batch(draw.phases[0]))
+            during = asyncio.create_task(fleet.submit_batch(draw.phases[1]))
+            await asyncio.sleep(0)
+            for d in draw.kills:
+                fleet.kill(d)
+            outs.append(await during)
+            outs.append(await fleet.submit_batch(draw.phases[2]))
+            return outs, fleet.latency_stats()["control"]
+
+    outs, ctl = asyncio.run(serve())
+    for name, pb, out in zip(("before", "during", "after"), draw.phases,
+                             outs):
+        want = oracle_engine.classify(draw.packed, pb)
+        got = (out.rslt, out.codes, out.svm_acc)
+        exp = (want.rslt.cpu().numpy(), u32_from_bits(want.codes),
+               want.svm_acc.cpu().numpy())
+        for f, g, w in zip(("rslt", "codes", "svm_acc"), got, exp):
+            if not np.array_equal(g, w):
+                raise AssertionError(f"fault schedule seed {draw.seed} mode "
+                                     f"{mode}: phase {name} {f} != mode ref")
+    if not (ctl["failures_detected"] >= 1 and ctl["replans"] >= 1
+            and ctl["drains"] >= 1 and ctl["reinstalls"] >= 1
+            and ctl["heal_failures"] == 0):
+        raise AssertionError(f"fault schedule seed {draw.seed}: counters "
+                             f"{ctl}")
+    if set(draw.kills) & set(fleet.path):
+        raise AssertionError(f"killed {draw.kills} still on {fleet.path}")
+    return ctl
+
+
+def pool_ptrs(executor):
+    """Every resident tensor's address in the fleet's hop pool."""
+    from repro_torch.core.plane import program_tensors
+
+    return [[t.data_ptr() for t in program_tensors(p)]
+            for p in executor.pool]
+
+
+def fleet_phase(prof, seed, device, programs, zoo, test_sets, pb):
+    """Phase 12: the self-healing fleet on the card (see the module
+    docstring).  Returns the numbers of the ``paths`` line."""
+    import asyncio
+
+    import numpy as np
+    import torch
+    from repro_torch.core.distributed_plane import build_zoo_device_programs
+    from repro_torch.core.packets import u32_from_bits
+    from repro_torch.core.plane import SwitchEngine
+    from repro_torch.core.planner import DeviceModel, plan_zoo
+    from repro_torch.core.topology import fat_tree
+    from repro_torch.data import conformance as draws
+    from repro_torch.serving import FleetRuntime, open_loop
+
+    net = fat_tree(4)
+    vids = sorted(programs)
+    progs = [programs[v] for v in vids]
+    oracle = SwitchEngine(prof, mode="ref", device=device)
+    want = oracle.classify(zoo.packed, pb)
+    out = {}
+
+    # the zoo at full width, two pods apart, in the fused and layerwise modes
+    fleets = {}
+    for mode in (None, "layerwise"):
+        t0 = time.perf_counter()
+        fl = fleets[mode] = FleetRuntime(
+            net, prof, progs, src=FLEET_SRC, dst=FLEET_DST, mode=mode,
+            default_device=DeviceModel(n_stages=FLEET_STAGES))
+        hops = fl.executor.devices
+        if len(hops) < 2 or fl.executor.device.type != device.type:
+            raise AssertionError(f"fleet on {fl.executor.device} hosted by "
+                                 f"{hops}: not a card fleet of >= 2 hops")
+        print(f"FleetRuntime(mode={mode!r}) built in "
+              f"{time.perf_counter() - t0:.3f} s: path "
+              f"{' -> '.join(fl.path)}, hosting {', '.join(hops)}")
+        per = per_classify(mode, prof)
+        for what in ("capture", "replay"):
+            got = checked(lambda: fl.runtime.run(pb), per,
+                          n_classify=len(hops))
+            same_fields(f"fleet ({mode or 'fused'}, {what}) vs mode ref",
+                        got, want)
+        steps = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fl.runtime.run(pb)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
+        ms_ = float(np.median(steps))
+        out[f"classify_ms_{mode or 'fused'}"] = ms_
+        out[f"requests_per_s_{mode or 'fused'}"] = pb.batch / ms_ * 1e3
+        print(f"B={pb.batch}, mode {mode or 'fused'}: {len(hops)} hops == "
+              f"mode ref on rslt, codes, svm_acc; launches {len(hops)} x "
+              f"{per} a replay; {ms_:.3f} ms a batch (median of 20), "
+              f"{pb.batch / ms_ * 1e3:.1f} requests/s")
+    fleet = fleets[None]
+    del fleets["layerwise"]
+
+    # retarget to another hosting count and back: one entry per count, no
+    # resident tensor moved
+    ex = fleet.executor
+    home = (list(fleet.path), list(ex.devices), fleet.replan_sync()[2])
+    alt = plan_zoo(progs, net, FLEET_SRC, FLEET_DST,
+                   default_device=DeviceModel(n_stages=FLEET_STAGES_ALT))
+    alt_devs, alt_progs = build_zoo_device_programs(progs, alt, prof, "cpu")
+    if len(alt_devs) == len(home[1]):
+        raise AssertionError(f"{FLEET_STAGES_ALT} stage slots host the zoo "
+                             f"on {len(alt_devs)} switches too")
+    ptrs, size, per = pool_ptrs(ex), ex.cache_size(), per_classify(None, prof)
+    t0 = time.perf_counter()
+    ex.retarget(alt[0].path, alt_devs, alt_progs)
+    retarget_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    got = checked(lambda: fleet.runtime.run(pb), per, n_classify=len(alt_devs))
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    same_fields(f"fleet retargeted to {len(alt_devs)} hops", got, want)
+    grown = ex.cache_size()
+    ex.retarget(*home)
+    got = checked(lambda: fleet.runtime.run(pb), per, n_classify=len(home[1]))
+    same_fields(f"fleet retargeted back to {len(home[1])} hops", got, want)
+    bound = 1 * 2                  # one bucket (B 4096) x two hosting counts
+    if not (grown == size + 1 and ex.cache_size() == grown <= bound):
+        raise AssertionError(f"cache_size {size} -> {grown} -> "
+                             f"{ex.cache_size()}: bound {bound}")
+    if pool_ptrs(ex) != ptrs:
+        raise AssertionError("a retarget moved a resident data_ptr")
+    print(f"retarget {len(home[1])} -> {len(alt_devs)} hops "
+          f"({retarget_ms:.3f} ms, programs copied in from the host), the "
+          f"first classify there (a capture) {capture_ms:.3f} ms, and back: "
+          f"cache_size {size} -> {grown} -> {ex.cache_size()} (bound 1 "
+          "bucket x 2 hosting counts), no resident data_ptr moved")
+    out.update(retarget_ms=retarget_ms, capture_at_new_count_ms=capture_ms)
+
+    # the eight seeded fault schedules of the conformance lane
+    cprof = draws.profile(draws.FLEET_V)
+    maker = SwitchEngine(cprof, device=device)
+    coracle = SwitchEngine(cprof, mode="ref", device=device)
+    heals = []
+    for case in range(draws.N_FAULT_CASES):
+        draw = draws.draw_fleet_case(case, maker)
+        row = []
+        for mode in (None, "layerwise"):
+            fl = FleetRuntime(draw.network, cprof, draw.programs,
+                              src=draw.src, dst=draw.dst, mode=mode,
+                              default_device=draw.device_model)
+            if fl.path != draw.path:
+                raise AssertionError(f"fault case {case}: path {fl.path}, "
+                                     f"drawn on {draw.path}")
+            n0 = len(fl.executor.devices)
+            ctl = fleet_kill_schedule(fl, draw, coracle, mode)
+            heals.append(ctl["last_heal_ms"])
+            row.append(f"{mode or 'fused'} {n0} -> "
+                       f"{len(fl.executor.devices)} hops, heal "
+                       f"{ctl['last_heal_ms']:.3f} ms, retries "
+                       f"{ctl['retries']}")
+        print(f"fault case {case} (seed {draw.seed}, {draw.device_model.n_stages}"
+              f" stages, kill {draw.kills} on {' -> '.join(draw.path)}): "
+              "every phase == mode ref; " + "; ".join(row))
+    out["fault_schedule_heal_ms"] = heals
+
+    # a kill under open-loop load
+    rng = np.random.default_rng(seed + 12)
+    reqs, wants = [], []
+    for _ in range(512):
+        pbn, Xn, vn, _ = traffic(rng, zoo, test_sets, int(rng.integers(1, 65)))
+        reqs.append((Xn, pbn.mid.numpy(), vn))
+        w = oracle.classify(zoo.packed, zoo.make_request(Xn, mid=pbn.mid.numpy(),
+                                                         vid=vn))
+        wants.append((w.rslt.cpu().numpy(), u32_from_bits(w.codes),
+                      w.svm_acc.cpu().numpy()))
+    fleet.runtime.warm(passthrough(prof), 64)
+
+    wrong = []
+
+    def check(i, r):
+        w = wants[i % len(reqs)]
+        if not (np.array_equal(r.rslt, w[0]) and np.array_equal(r.codes, w[1])
+                and np.array_equal(r.svm_acc, w[2])):
+            wrong.append(i)
+
+    async def closed(seconds):
+        async with fleet.serving():
+            loop = asyncio.get_running_loop()
+            done = [0]
+            t_end = loop.time() + seconds
+
+            async def client(c):
+                i = c
+                while loop.time() < t_end:
+                    X, mid, vid = reqs[i % len(reqs)]
+                    check(i, await fleet.submit(X, mid=mid, vid=vid))
+                    done[0] += 1
+                    i += CLIENTS
+            t0 = loop.time()
+            await asyncio.gather(*[client(c) for c in range(CLIENTS)])
+            return done[0] / (loop.time() - t0), fleet.latency_stats()
+
+    rate, stats = asyncio.run(closed(FLEET_SECONDS / 2))
+    if wrong:
+        raise AssertionError(f"closed loop: requests {wrong[:8]} != mode ref")
+    print(f"closed loop through fleet.serving() ({CLIENTS} clients, "
+          f"{len(ex.devices)} hops, size-or-deadline 64 / 500 us): "
+          f"{rate:.1f} requests/s, p50 {stats['p50_ms']:.3f} ms, p99 "
+          f"{stats['p99_ms']:.3f} ms; every answer == mode ref")
+
+    victim = fleet.path[3]
+    if victim not in ex.devices:
+        raise AssertionError(f"{victim} hosts no stage of {ex.devices}")
+    spans, calls = {}, []
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spans[name] = (t0, time.perf_counter())
+        return run
+
+    def atimed(name, fn):
+        async def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return await fn(*a, **kw)
+            finally:
+                spans[name] = (t0, time.perf_counter())
+        return run
+
+    classify = ex.classify
+
+    def logged(batch):
+        t0 = time.perf_counter()
+        try:
+            return classify(batch)
+        finally:
+            calls.append((t0, (time.perf_counter() - t0) * 1e3,
+                          ex.cache_size()))
+
+    async def opened(load):
+        async with fleet.serving():
+            server = fleet.control.server
+            server.drain = atimed("drain", server.drain)
+            loop = asyncio.get_running_loop()
+            lat = []
+
+            async def submit(i):
+                X, mid, vid = reqs[i % len(reqs)]
+                t0 = time.perf_counter()
+                r = await fleet.submit(X, mid=mid, vid=vid)
+                lat.append((t0, (time.perf_counter() - t0) * 1e3))
+                check(i, r)
+
+            async def kill():
+                await asyncio.sleep(FLEET_SECONDS / 2)
+                spans["kill"] = (time.perf_counter(),) * 2
+                fleet.kill(victim)
+            killer = loop.create_task(kill())
+            report = await open_loop(
+                submit, rate_rps=load * rate,
+                n_requests=max(int(load * rate * FLEET_SECONDS), 8),
+                n_clients=8, seed=seed)
+            await killer
+            return report, lat, fleet.latency_stats()
+
+    fleet.replan_sync = timed("replan", fleet.replan_sync)
+    fleet.reinstall = timed("reinstall", fleet.reinstall)
+    ex.classify = logged
+    try:
+        report, lat, stats = asyncio.run(opened(FLEET_LOAD))
+    finally:
+        del fleet.replan_sync, fleet.reinstall, ex.classify
+    ctl = stats["control"]
+    if (report.errors or wrong or ctl["heal_failures"]
+            or not ctl["reinstalls"]):
+        raise AssertionError(f"open loop with a kill: {report.errors} "
+                             f"errors, requests {wrong[:8]} != mode ref, "
+                             f"counters {ctl}")
+    if victim in fleet.path:
+        raise AssertionError(f"{victim} still on {fleet.path}")
+    split = {k: (spans[k][1] - spans[k][0]) * 1e3
+             for k in ("replan", "drain", "reinstall")}
+    t_kill, t_healed = spans["kill"][0], spans["reinstall"][1]
+    after = [c for c in calls if c[0] >= t_healed]
+    first_ms = after[0][1]
+
+    def pct(xs):
+        return (float(np.percentile(xs, 50)), float(np.percentile(xs, 99))) \
+            if xs else (float("nan"), float("nan"))
+    before = pct([ms_ for t, ms_ in lat if t < t_kill])
+    healed = pct([ms_ for t, ms_ in lat if t >= t_healed])
+    print(f"open loop at {FLEET_LOAD} x {rate:.1f} = {report.offered_rps:.1f}"
+          f" requests/s (Poisson, 1-64 packets), {victim} killed "
+          f"{FLEET_SECONDS / 2} s in: errors {report.errors} of "
+          f"{report.requests}, every answer == mode ref, achieved "
+          f"{report.achieved_rps:.1f}/s, p50 {report.p50_ms:.3f} ms, p99 "
+          f"{report.p99_ms:.3f} ms")
+    print(f"heal: last_heal_ms {ctl['last_heal_ms']:.3f} (replan "
+          f"{split['replan']:.3f} on a worker thread, drain "
+          f"{split['drain']:.3f}, reinstall {split['reinstall']:.3f}); "
+          f"failures {ctl['failures_detected']}, replans {ctl['replans']}, "
+          f"retries {ctl['retries']}; new path {' -> '.join(fleet.path)}; "
+          f"the first post-heal dispatch {first_ms:.3f} ms (cache_size "
+          f"{after[0][2]}); per request from the submit call, before the "
+          f"kill p50 {before[0]:.3f} / p99 {before[1]:.3f} ms, after the "
+          f"heal p50 {healed[0]:.3f} / p99 {healed[1]:.3f} ms")
+    out.update(closed_loop_requests_per_s=rate, open_loop=report.row(),
+               last_heal_ms=ctl["last_heal_ms"],
+               heal_split_ms=split, first_post_heal_dispatch_ms=first_ms,
+               retries=ctl["retries"], p50_p99_before_ms=before,
+               p50_p99_after_ms=healed)
+
+    # the cut vertex: the src host's only edge switch
+    edge = fleet.path[1]
+
+    async def cut():
+        async with fleet.serving(probe_interval_s=30.0):
+            fleet.kill(edge)
+            try:
+                await fleet.control.heal()
+            except RuntimeError as e:
+                return str(e), fleet.counters.heal_failures
+            raise AssertionError(f"heal() with {edge} dead did not raise")
+    msg, failures = asyncio.run(cut())
+    fleet.revive(edge)
+    if "no surviving path" not in msg or failures != 1:
+        raise AssertionError(f"cut vertex: {msg!r}, heal_failures {failures}")
+    print(f"cut vertex {edge} killed: heal() raised RuntimeError "
+          f"({msg.split(' with ')[0]}), heal_failures {failures}")
+    torch.cuda.synchronize()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2358,6 +2725,11 @@ def main(argv=None) -> int:
     phase("11 main path: the async fronts over the graph path, open loop")
     fronts = main_path("async_fronts", lambda: fronts_phase(
         prof, args.seed, warmed, test_sets, device), ["classify_fused"])
+    phase("12 main path: the self-healing fleet, fault schedules and a kill "
+          "under open-loop load")
+    fleet = main_path("fleet", lambda: fleet_phase(
+        prof, args.seed, device, programs, zoos[None], test_sets, pb),
+        classify_kernels([None, "layerwise"]))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2376,6 +2748,7 @@ def main(argv=None) -> int:
                                 "requests_per_s": rps,
                                 "steps": steps, "slot_write_ms": writes,
                                 "fronts": fronts,
+                                "fleet": fleet,
                                 "lm_decode": served},
                       "decode_attn_shapes": {
                           k: {x: a[x] for x in ("ms", "plain_ms", "bound_ms",

@@ -9,4 +9,5 @@
     topology.py  datacenter topologies for the planner (copy)
     planner.py   ILP / DP placement of program stages on a path (copy)
     distributed_plane.py  a plan -> per-switch partial programs
+    netsim.py    latency / overhead / availability model, J_L (copy)
 """

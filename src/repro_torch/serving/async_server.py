@@ -214,8 +214,8 @@ class AsyncZooServer:
         self.zoo.evict(vid=vid, kind=kind)
 
     # ------------------------------------------------------ quiesce seam
-    # The control plane's drain/reinstall barrier (the reference's
-    # repro.runtime.control, not ported yet):
+    # The control plane's drain/reinstall barrier (``ControlLoop`` of
+    # repro_torch.runtime.control, driven by serving/fleet.py):
     # hold() pauses cutting new dispatches (submits keep queuing), drain()
     # additionally waits for every in-flight dispatch to land, release()
     # resumes.  Nothing is dropped — held requests dispatch after release.

@@ -24,7 +24,11 @@ launches of both in flight together.  The graph cache (one captured CUDA
 graph per admission bucket): replay against eager and the twin on the 204
 draws in three modes, with exact launches per replay; install, evict and
 swap between replays in place; two threads replaying at once; a capture
-that fails raises and keeps no entry.
+that fails raises and keeps no entry.  The fleet (``FleetRuntime`` on its
+hop pool): the 8 fault-lane deployments replayed against eager and the
+twin with exact launches, a retarget to another hosting count between
+replays with no resident ``data_ptr`` moved, and a ``DeviceFailure`` raised
+on a replaying slot thread that reaches the submitter as itself.
 """
 import dataclasses
 
@@ -745,3 +749,140 @@ def test_failing_capture_raises_and_keeps_no_entry(cuda, monkeypatch):
     assert (zoo.classify(np.zeros((3, draws.N_FEATURES), np.int32), mid=0,
                          vid=0) == -1).all()
     assert zoo.cache_size() == 1
+
+
+# ------------------------------------------------------ the fleet (slice 8)
+def _fleet_pool_ptrs(ex):
+    return [[t.data_ptr() for t in program_tensors(p)] for p in ex.pool]
+
+
+@pytest.mark.parametrize("mode", [None, "layerwise"], ids=str)
+def test_fleet_replays_equal_eager_and_ref_on_the_fault_lane(cuda, mode):
+    """The 8 fault-lane deployments (the conformance profile): each
+    phase's replay through the fleet's hop pool equals the same chain run
+    eagerly and the twin on the monolithic install, with hops x the mode's
+    launches a replay."""
+    from repro_torch.serving import FleetRuntime
+    from repro_torch.serving.fleet import FleetExecutor
+
+    prof = draws.profile(draws.FLEET_V)
+    maker = SwitchEngine(prof, device=cuda)
+    twin = SwitchEngine(prof, mode="ref", device=cuda)
+    for case in range(draws.N_FAULT_CASES):
+        d = draws.draw_fleet_case(case, maker)
+        fleet = FleetRuntime(d.network, prof, d.programs, src=d.src,
+                             dst=d.dst, default_device=d.device_model,
+                             mode=mode)
+        assert fleet.executor.device.type == cuda.type
+        assert fleet.path == d.path
+        n = len(fleet.executor.devices)
+        eager = DataplaneRuntime(FleetExecutor(
+            fleet.engine, fleet.path, fleet.executor.devices,
+            fleet.replan_sync()[2], down=set(), graphs=False))
+        want_n = {k: n * GRAPH_MODES[mode].get(k, 0)
+                  for k in _launch_counts()}
+        for pb in d.phases:
+            fleet.runtime.run(pb)                  # capture (or replay)
+            before = _launch_counts()
+            out = fleet.runtime.run(pb)            # a replay
+            torch.cuda.synchronize()
+            assert {k: c - before[k] for k, c in _launch_counts().items()} \
+                == want_n, (case, pb.batch)
+            want, ref_out = eager.run(pb), twin.classify(d.packed, pb)
+            for f in ("rslt", "codes", "svm_acc"):
+                assert torch.equal(getattr(out, f), getattr(want, f)), \
+                    (case, f)
+                assert torch.equal(getattr(out, f), getattr(ref_out, f)), \
+                    (case, f)
+        assert eager.cache_size() == 0
+
+
+def test_fleet_retarget_between_replays_moves_no_data_ptr(cuda):
+    """A 5-hop deployment retargeted to the same zoo on bigger switches
+    (fewer hops) and back between replays: every replay equals the twin,
+    the revisit adds no entry, and no resident tensor moves."""
+    from repro_torch.core.planner import DeviceModel, plan_zoo
+    from repro_torch.serving import FleetRuntime
+
+    prof = draws.profile(draws.FLEET_V)
+    maker = SwitchEngine(prof, device=cuda)
+    twin = SwitchEngine(prof, mode="ref", device=cuda)
+    d = draws.draw_fleet_case(6, maker)
+    fleet = FleetRuntime(d.network, prof, d.programs, src=d.src, dst=d.dst,
+                         default_device=d.device_model)
+    ex = fleet.executor
+    home = (list(fleet.path), list(ex.devices), fleet.replan_sync()[2])
+    alt = plan_zoo(d.programs, d.network, d.src, d.dst,
+                   default_device=DeviceModel())
+    alt_devs, alt_progs = tdp.build_zoo_device_programs(d.programs, alt,
+                                                        prof, "cpu")
+    assert len(home[1]) == 5 and len(alt_devs) < 5
+    pb = d.phases[0]
+    want = twin.classify(d.packed, pb)
+    ptrs = _fleet_pool_ptrs(ex)
+    sizes = []
+    for target in (home, (alt[0].path, alt_devs, alt_progs), home,
+                   (alt[0].path, alt_devs, alt_progs)):
+        ex.retarget(*target)
+        for _ in range(2):
+            out = fleet.runtime.run(pb)
+            for f in ("rslt", "codes", "svm_acc"):
+                assert torch.equal(getattr(out, f), getattr(want, f)), f
+        sizes.append(ex.cache_size())
+    assert sizes == [1, 2, 2, 2]
+    assert _fleet_pool_ptrs(ex) == ptrs
+
+
+def test_device_failure_from_a_replaying_slot_thread_reaches_the_submitter(
+        cuda):
+    """A kill that lands while a slot thread replays the chain: the server
+    fails the dispatch with the ``DeviceFailure`` itself (no wrapper), the
+    executor's lock is free, and ``submit_batch`` heals and retries to the
+    twin's answer."""
+    import asyncio
+    import threading
+
+    from repro_torch.runtime import DeviceFailure
+    from repro_torch.serving import FleetRuntime
+
+    prof = draws.profile(draws.FLEET_V)
+    maker = SwitchEngine(prof, device=cuda)
+    twin = SwitchEngine(prof, mode="ref", device=cuda)
+    d = draws.draw_fleet_case(1, maker)
+    fleet = FleetRuntime(d.network, prof, d.programs, src=d.src, dst=d.dst,
+                         default_device=d.device_model)
+    ex = fleet.executor
+    pb = d.phases[0]
+    fleet.runtime.run(pb)                          # capture
+    cache = ex._cache(len(ex.devices))
+    replay = cache.run
+    threads = []
+
+    def replay_then_kill(batch):
+        out = replay(batch)
+        threads.append(threading.current_thread())
+        for k in d.kills:
+            fleet.kill(k)
+        return out
+
+    async def main():
+        async with fleet.serving(probe_interval_s=30.0):
+            cache.run = replay_then_kill
+            try:
+                await fleet.control.server.submit_batch(pb)
+            except Exception as e:         # checked below
+                raised = e
+            else:
+                raised = None
+            cache.run = replay
+            out = await fleet.submit_batch(pb)
+            return raised, out, fleet.latency_stats()["control"]
+
+    raised, out, ctl = asyncio.run(main())
+    assert type(raised) is DeviceFailure and raised.device in d.kills
+    assert threads and threads[0] is not threading.main_thread()
+    want = twin.classify(d.packed, pb)
+    np.testing.assert_array_equal(out.rslt, want.rslt.cpu().numpy())
+    np.testing.assert_array_equal(out.svm_acc, want.svm_acc.cpu().numpy())
+    assert ctl["retries"] == 1 and ctl["reinstalls"] == 1
+    assert not set(d.kills) & set(fleet.path)
