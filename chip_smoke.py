@@ -128,8 +128,29 @@ JAX package.  Phases, each fatal on failure:
              replan / drain / reinstall, the first post-heal dispatch,
              p50/p99 before and after; the src's edge switch killed:
              ``heal()`` raises and ``heal_failures == 1``.
+13. lanes  — the pipelined and sharded executors, every lane on this
+             card on a stream of its own: ``PipelinedExecutor`` over phase
+             7's 5 hop programs (n_micro 8), ``ShardedExecutor`` over them
+             with 2 ports (n_micro 4), and over the full zoo with 4 ports
+             (n_micro 1), each in the fused and layerwise modes through
+             ``DataplaneRuntime``: the ladder warmed to 4096, then B 4096,
+             1, 7, 509 and 4095 == ``mode="ref"`` with n_micro x switches x
+             ports x the mode's launches, ``cache_size()`` the ladder's
+             length before and after; a swap to the zoo with vid 0 evicted
+             and back shown in the next replay, no resident ``data_ptr``
+             moved; a ``ContinuousZooServer`` over a lane pool of
+             ``ShardedExecutor``s at 1, 2 and 4 ports under an impossible
+             SLO widens to 4 with every answer == ``mode="ref"``; with
+             more than one card, the same checks with lanes on distinct
+             cards.  Beside phase 7's sequential path: ms a batch,
+             requests/s, and under the profiler busy us, one
+             ``cudaGraphLaunch`` a replay, and how the lanes' kernels
+             overlap on the card.
+14. examples — every ``examples/torch_port/*.py`` as a child process on
+             the card, all at once: each exits 0; its seconds and the tail
+             of its output.
 
-Each main path (5, 6, 7, 8, 11, 12) runs with every kernel's launch count set
+Each main path (5, 6, 7, 8, 11, 12, 13) runs with every kernel's launch count set
 to 0 just before it and read just after; a kernel of the path that never
 launched fails the run.  A replayed graph adds the launches its capture
 counted.  Output: a ``paths`` JSON line, a ``kernels`` JSON line (with
@@ -1301,17 +1322,17 @@ def kernel_resources(libs):
 
 
 @contextlib.contextmanager
-def child(args, timeout=300):
-    """This script run again as a child process with ``args``, started now
-    and left to run beside the caller's work; ``get()`` waits for it and
-    returns (exit code, output).  The child is killed on the way out
-    whatever happened."""
+def child(args, timeout=300, env=None, cwd=None):
+    """A child process running ``args`` (this script again, or an example),
+    started now and left to run beside the caller's work; ``get()`` waits
+    for it and returns (exit code, output).  The child is killed on the way
+    out whatever happened."""
     import os
     import signal
 
     proc = subprocess.Popen(args, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True,
-                            start_new_session=True)
+                            start_new_session=True, env=env, cwd=cwd)
     t_end = time.perf_counter() + timeout
 
     def get():
@@ -1323,6 +1344,7 @@ def child(args, timeout=300):
             out, err = proc.communicate()
             return None, out + err
         return proc.returncode, (out, err)
+    get.proc = proc
     try:
         yield get
     finally:
@@ -2625,6 +2647,281 @@ def fleet_phase(prof, seed, device, programs, zoo, test_sets, pb):
     return out
 
 
+# ------------------------------------------------- phase 13: the lanes
+LANE_SIZES = (BATCH, 1, 7, 509, 4095)    # phase 13: B 4096, then ragged
+
+
+def lane_layouts(dps, full):
+    """Phase 13's layouts: (name, programs, n_ports, n_micro)."""
+    return (("pipelined_5x1", dps, 1, 8),
+            ("sharded_5x2", dps, 2, 4),
+            ("sharded_1x4", [full], 4, 1))
+
+
+def lane_trace(step, torch, n=5):
+    """``step()`` ``n`` times under the profiler: the device's busy us a
+    step (each kernel and copy once), kernels by wrapper name and
+    ``cudaGraphLaunch`` calls a step, and how the kernels' intervals on
+    the card overlap: the us a step during which any kernel ran, the us
+    during which two or more ran at once, the most at once, and the
+    kernels that began while another was running."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    dev = [e for e in p.events() if e.device_type != DeviceType.CPU]
+    busy = sum(e.time_range.end - e.time_range.start for e in dev)
+    kern = sorted((e.time_range.start, e.time_range.end) for e in dev
+                  if not e.name.startswith(("Memcpy", "Memset")))
+    got = {}
+    for e in dev:
+        for name, fn in KERNEL_FN.items():
+            if fn in e.name:
+                got[name] = got.get(name, 0) + 1
+    graphs = sum(1 for e in p.events() if e.device_type == DeviceType.CPU
+                 and e.name.startswith("cudaGraphLaunch"))
+    edges = sorted([(t0, 1) for t0, _ in kern] + [(t1, -1) for _, t1 in kern])
+    live = most = 0
+    overlap = active = 0.0
+    last = None
+    for t, d in edges:
+        if live >= 1:
+            active += t - last
+        if live >= 2:
+            overlap += t - last
+        live += d
+        most = max(most, live)
+        last = t
+    began, end = 0, float("-inf")
+    for t0, t1 in kern:               # sorted by start
+        began += end > t0
+        end = max(end, t1)
+    return dict(busy_us=busy / n, kernel_active_us=active / n,
+                kernels_per_step=len(kern) / n, overlap_us=overlap / n,
+                most_at_once=most, began_while_another_ran=began / n,
+                by_kernel={k: v / n for k, v in got.items()},
+                graph_launches=graphs / n)
+
+
+def lane_runtimes(dps, full, devices_of, prof):
+    """Every phase 13 layout in the fused and layerwise modes, lanes on
+    ``devices_of(n)``: {(layout, mode): (runtime, hops a classify)}."""
+    from repro_torch.runtime import DataplaneRuntime, ShardedExecutor
+
+    rts = {}
+    for name, progs, n_ports, n_micro in lane_layouts(dps, full):
+        for mode in (None, "layerwise"):
+            ex = ShardedExecutor(progs, n_classes=prof.max_classes,
+                                 mode=mode, n_ports=n_ports, n_micro=n_micro,
+                                 devices=devices_of(len(progs) * n_ports))
+            rts[name, mode] = (DataplaneRuntime(ex),
+                               n_micro * len(progs) * n_ports)
+    return rts
+
+
+def lane_checks(rts, prof, pb, want, second, swaps, tag):
+    """Each runtime at every B of ``LANE_SIZES`` == ``want[B]`` with exact
+    launches (after warming the ladder to ``BATCH`` where it keeps
+    graphs: ``cache_size()`` the ladder's length, before and after); a swap
+    to the second zoo (``swaps[layout][0]``, answering ``second``) and back
+    between replays, shown in the next replay, no resident ``data_ptr``
+    moved."""
+    from repro_torch.core.plane import program_tensors
+
+    def ptrs(ex):
+        return [[t.data_ptr() for t in program_tensors(p)]
+                for p in ex.programs]
+    for (name, mode), (rt, hops) in rts.items():
+        ex = rt.executor
+        graphs = len({d for row in ex.lanes for d in row}) == 1
+        ladder = rt.warm(passthrough(prof), BATCH) if graphs else ()
+        if rt.cache_size() != len(ladder):
+            raise AssertionError(f"{tag} {name} {mode}: cache_size "
+                                 f"{rt.cache_size()} after warming "
+                                 f"{len(ladder)} buckets")
+        before = ptrs(ex)
+        for B in LANE_SIZES:
+            part = pb.map(lambda x: x[:B])
+            out = checked(lambda: rt.run(part), per_classify(mode, prof),
+                          n_classify=hops)
+            same_fields(f"{tag} {name} {mode or 'fused'} B={B}", out,
+                        want[B])
+        for progs, answer in zip(swaps[name], (second, want[BATCH])):
+            rt.swap(progs)
+            same_fields(f"{tag} {name} {mode or 'fused'} after a swap",
+                        rt.run(pb), answer)
+        if rt.cache_size() != len(ladder) or ptrs(ex) != before:
+            raise AssertionError(f"{tag} {name} {mode}: the ragged sizes or "
+                                 "the swaps added an entry or moved a "
+                                 "resident data_ptr")
+        print(f"{tag} {name} {mode or 'fused'}: {ex.n_switch} switches x "
+              f"{ex.n_ports} ports, n_micro {ex.n_micro}, granularity "
+              f"{ex.granularity}: B {', '.join(map(str, LANE_SIZES))} == mode "
+              f"ref; launches {hops} x {per_classify(mode, prof)}; "
+              f"cache_size {rt.cache_size()}"
+              f"{' (eager)' if not graphs else ' (the warmed ladder)'} "
+              "before and after; a swap and back shown in the next replay, "
+              "no data_ptr moved")
+
+
+def lane_autoscale(full, prof, pb, want, device):
+    """``ContinuousZooServer`` over a lane pool of ``ShardedExecutor``s at
+    1, 2 and 4 ports under an impossible SLO: it widens to 4 lanes and
+    every answer equals mode ref."""
+    import asyncio
+
+    import numpy as np
+    from repro_torch.core.packets import batch_to_arrays
+    from repro_torch.runtime import (
+        ShardedExecutor,
+        SizeOrDeadlinePolicy,
+        SloAutoscaler,
+    )
+    from repro_torch.serving import ContinuousZooServer, ZooServer
+
+    pool = {k: ShardedExecutor([full], n_classes=prof.max_classes,
+                               n_ports=k, n_micro=1, devices=[device] * k)
+            for k in (1, 2, 4)}
+    zoo = ZooServer(prof, executor=pool[1])
+    scaler = SloAutoscaler(slo_p99_ms=1e-6, lanes=(1, 2, 4), window=4,
+                           patience=1, cooldown=0)
+    starts = [(97 * i) % (pb.batch - 48) for i in range(40)]
+    spans = [(lo, lo + 1 + i % 48) for i, lo in enumerate(starts)]
+
+    async def serve():
+        async with ContinuousZooServer(
+                zoo, policy=SizeOrDeadlinePolicy(max_batch=64,
+                                                 max_wait_us=200.0),
+                n_slots=2, lane_pool=pool, autoscaler=scaler) as srv:
+            outs = []
+            for lo, hi in spans:
+                outs.append(await srv.submit_batch(
+                    pb.map(lambda x: x[lo:hi])))
+            return outs, srv.lanes, srv.latency_stats()["engine"]
+    outs, lanes, eng = asyncio.run(serve())
+    if lanes != 4 or eng["scale_ups"] != 2:
+        raise AssertionError(f"the lane pool did not widen to 4: lanes "
+                             f"{lanes}, {eng}")
+    w = batch_to_arrays(want[BATCH])
+    for (lo, hi), out in zip(spans, outs):
+        for f in ("rslt", "codes", "svm_acc"):
+            if not np.array_equal(getattr(out, f), w[f][lo:hi]):
+                raise AssertionError(f"autoscaled lanes: {f} of [{lo}, "
+                                     f"{hi}) differs from mode ref")
+    print(f"autoscaled lane pool {{1, 2, 4}} ports: widened 1 -> 2 -> 4 "
+          f"({eng['scale_ups']} scale-ups), {len(spans)} requests == mode "
+          f"ref across the scale events; {len(eng['warmed_buckets'])} "
+          "buckets warmed on the last lane")
+
+
+def lanes_phase(prof, device, programs, runtimes, pb):
+    """Phase 13 (see the module docstring).  Returns the numbers of the
+    ``paths`` line."""
+    import torch
+    from repro_torch.core.plane import SwitchEngine, evict_program
+
+    dps = list(runtimes[None].executor.programs)
+    oracle = SwitchEngine(prof, mode="ref", device=device)
+    full = oracle.empty()
+    for v, p in programs.items():
+        full = oracle.install(full, p, vid=v)
+    want = {B: oracle.classify(full, pb.map(lambda x: x[:B]))
+            for B in LANE_SIZES}
+    second = oracle.classify(evict_program(full, prof, vid=0), pb)
+    swaps = {name: ([evict_program(p, prof, vid=0) for p in progs], progs)
+             for name, progs, _, _ in lane_layouts(dps, full)}
+    print(f"the planned path's {len(dps)} hop programs and the zoo's full "
+          "program; the second zoo: each with vid 0 evicted")
+    card = torch.device("cuda", torch.cuda.current_device())
+    rts = lane_runtimes(dps, full, lambda n: [card] * n, prof)
+    lane_checks(rts, prof, pb, want, second, swaps, "one card:")
+    stamp("lane checks done")
+    lane_autoscale(full, prof, pb, want, card)
+    stamp("lane autoscale done")
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        cards = [torch.device("cuda", i) for i in range(n_cards)]
+        multi = lane_runtimes(dps, full, lambda n: [cards[i % n_cards]
+                                                    for i in range(n)], prof)
+        lane_checks(multi, prof, pb, want, second, swaps,
+                    f"{n_cards} cards:")
+    else:
+        print(f"lanes on distinct cards: not run (this host has {n_cards} "
+              "card)")
+    steps = {f"{name}_{mode or 'fused'}": rt for (name, mode), (rt, _) in
+             rts.items()}
+    steps.update({f"sequential_5x1_{m or 'fused'}": rt
+                  for m, rt in runtimes.items()})
+    out = {}
+    B = pb.batch
+    for name, rt in steps.items():
+        def step(rt=rt):
+            return rt.run(pb).rslt.cpu()
+        step()
+        dts = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            step()
+            dts.append(time.perf_counter() - t0)
+        wall = sorted(dts)[len(dts) // 2]
+        tr = lane_trace(step, torch)
+        out[name] = dict(ms=wall * 1e3, requests_per_s=B / wall, **tr)
+        print(f"{name}: median {wall * 1e3:.3f} ms a {B}-request batch of "
+              f"20 ({B / wall:.0f} requests/s); busy {tr['busy_us']:.1f} us "
+              f"a step; {tr['kernels_per_step']:g} kernels a step, "
+              f"{tr['overlap_us']:.1f} us of them with two or more at once "
+              f"(most {tr['most_at_once']}), "
+              f"{tr['began_while_another_ran']:g} began while another ran; "
+              f"cudaGraphLaunch {tr['graph_launches']:g} a step")
+        if tr["graph_launches"] != 1:
+            raise AssertionError(f"{name}: {tr['graph_launches']} "
+                                 "cudaGraphLaunch a replay, not 1")
+    out["distinct_cards"] = n_cards > 1
+    return out
+
+
+def examples_phase(timeout=300):
+    """Phase 14: every ``examples/torch_port/*.py`` as a child process on
+    the card, all started together; each must exit 0."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    paths = sorted((root / "examples" / "torch_port").glob("*.py"))
+    if not paths:
+        raise AssertionError("no examples under examples/torch_port")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    seconds = {}
+    with contextlib.ExitStack() as stack:
+        t0 = time.perf_counter()
+        gets = {p.stem: stack.enter_context(child(
+            [sys.executable, str(p)], timeout=timeout, env=env, cwd=root))
+            for p in paths}
+        # each child's own seconds: from the start to its exit (an
+        # example prints a few lines, far below a pipe's buffer)
+        while len(seconds) < len(gets) and \
+                time.perf_counter() - t0 < timeout:
+            for name, get in gets.items():
+                if name not in seconds and get.proc.poll() is not None:
+                    seconds[name] = time.perf_counter() - t0
+            time.sleep(0.05)
+        for name, get in gets.items():
+            rc, out = get()
+            text = out if rc is None else out[0] + out[1]
+            tail = "\n    ".join(text.strip().splitlines()[-4:])
+            print(f"{name}: exit {rc} in {seconds.get(name, timeout):.1f} "
+                  f"s\n    {tail}")
+            if rc != 0:
+                raise AssertionError(f"examples/torch_port/{name}.py exited "
+                                     f"{rc}:\n{text[-3000:]}")
+    return seconds
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2730,6 +3027,13 @@ def main(argv=None) -> int:
     fleet = main_path("fleet", lambda: fleet_phase(
         prof, args.seed, device, programs, zoos[None], test_sets, pb),
         classify_kernels([None, "layerwise"]))
+    phase("13 main path: the pipelined and sharded lanes, a graph per "
+          "bucket, swaps, an autoscaled lane pool; beside the path of phase 7")
+    lanes = main_path("lanes", lambda: lanes_phase(
+        prof, device, programs, runtimes, pb),
+        classify_kernels([None, "layerwise"]))
+    phase("14 the examples of examples/torch_port, as children on the card")
+    examples = examples_phase()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2749,6 +3053,8 @@ def main(argv=None) -> int:
                                 "steps": steps, "slot_write_ms": writes,
                                 "fronts": fronts,
                                 "fleet": fleet,
+                                "lanes": lanes,
+                                "examples_seconds": examples,
                                 "lm_decode": served},
                       "decode_attn_shapes": {
                           k: {x: a[x] for x in ("ms", "plain_ms", "bound_ms",

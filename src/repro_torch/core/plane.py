@@ -451,15 +451,20 @@ def program_tensors(packed: PackedProgram) -> list[torch.Tensor]:
     return tables + ([] if packed.image is None else list(packed.image.fused))
 
 
-def resident_program(packed: PackedProgram) -> PackedProgram:
-    """A copy of ``packed`` in tensors of its own, with its exec image:
-    what an executor holds and writes in place."""
+def resident_program(packed: PackedProgram, device=None) -> PackedProgram:
+    """A copy of ``packed`` in tensors of its own, with its exec image, on
+    ``device`` (``packed``'s own by default): what an executor holds and
+    writes in place."""
     if packed.image is None:
         packed = dataclasses.replace(packed, image=build_exec_image(packed))
-    fields = {f.name: getattr(packed, f.name).clone()
+    device = packed.device if device is None else torch.device(device)
+
+    def own(x):
+        return x.to(device, copy=True)
+    fields = {f.name: own(getattr(packed, f.name))
               for f in dataclasses.fields(packed) if f.name != "image"}
     image = ExecImage(fused=tiling.ClassifyFusedOperands(
-        *(x.clone() for x in packed.image.fused)))
+        *(own(x) for x in packed.image.fused)))
     return PackedProgram(**fields, image=image)
 
 

@@ -1,11 +1,11 @@
 """The runtime layer: one front door to the classify substrate (port of
-``repro.runtime``: admission, the executor protocol, the single-switch
-executor, the sequential-path executor, the ``DataplaneRuntime`` facade and
-the batching policies, and ``control.py``, the self-healing control loop
-over a fleet: ``ControlLoop``, ``ControlCounters``, ``DeviceFailure``).
-``graphs.py`` is the port's own: the captured CUDA graph per admission
-bucket that stands in for the reference's jit cache.  The reference's
-multi-card executors are not ported yet."""
+``repro.runtime``: admission, the executor protocol and its four
+executors (single switch, sequential path, and the pipelined and sharded
+``(switch, port)`` lanes), the ``DataplaneRuntime`` facade and the batching
+policies, and ``control.py``, the self-healing control loop over a fleet:
+``ControlLoop``, ``ControlCounters``, ``DeviceFailure``).  ``graphs.py`` is
+the port's own: the captured CUDA graph per admission bucket that stands in
+for the reference's jit cache."""
 from repro_torch.runtime.admission import (
     bucket_ladder,
     bucket_size,
@@ -21,7 +21,9 @@ from repro_torch.runtime.control import (
 )
 from repro_torch.runtime.executors import (
     Executor,
+    PipelinedExecutor,
     SequentialPathExecutor,
+    ShardedExecutor,
     SingleSwitchExecutor,
 )
 from repro_torch.runtime.facade import DataplaneRuntime
@@ -38,6 +40,8 @@ __all__ = [
     "Executor",
     "SingleSwitchExecutor",
     "SequentialPathExecutor",
+    "PipelinedExecutor",
+    "ShardedExecutor",
     "BatchingPolicy",
     "ImmediatePolicy",
     "SizeOrDeadlinePolicy",

@@ -5,9 +5,9 @@ executable" of each admission bucket is a captured CUDA graph
 (``runtime/graphs.py``): ``_warm_one`` captures every bucket of the
 incoming executor's ladder before it takes traffic.  The slot workers'
 dispatches overlap up to the executor's lock, which serialises the stage,
-replay and copy-out of one executor.  The lane pool holds single-switch
-executors programmed with the same zoo; the reference's mesh executors are
-not ported yet.
+replay and copy-out of one executor.  The lane pool holds executors
+programmed with the same zoo: single-switch executors, or
+``ShardedExecutor``s at widening port counts, as in the reference.
 
 ``AsyncZooServer`` dispatches one cut at a time: the loop cuts a
 batch, awaits the executor call, demuxes, and only then looks at the queue

@@ -28,7 +28,11 @@ that fails raises and keeps no entry.  The fleet (``FleetRuntime`` on its
 hop pool): the 8 fault-lane deployments replayed against eager and the
 twin with exact launches, a retarget to another hosting count between
 replays with no resident ``data_ptr`` moved, and a ``DeviceFailure`` raised
-on a replaying slot thread that reaches the submitter as itself.
+on a replaying slot thread that reaches the submitter as itself.  The
+pipelined and sharded lanes (``ShardedExecutor`` on one card, a stream a
+lane, one graph per bucket): three layouts in two modes replayed against
+eager and the twin with exact launches, a swap in place, a failing capture,
+and lanes on distinct cards where the host has more than one.
 """
 import dataclasses
 
@@ -886,3 +890,155 @@ def test_device_failure_from_a_replaying_slot_thread_reaches_the_submitter(
     np.testing.assert_array_equal(out.svm_acc, want.svm_acc.cpu().numpy())
     assert ctl["retries"] == 1 and ctl["reinstalls"] == 1
     assert not set(d.kills) & set(fleet.path)
+
+
+# ----------------------------------- the pipelined and sharded lanes (slice 9)
+LANE_LAYOUTS = {"pipe4x1": (4, 1, 4), "shard2x2": (2, 2, 2),
+                "shard1x4": (1, 4, 1)}    # (switches, n_ports, n_micro)
+
+
+def _lane_zoo(satdap_zoo, device, n_switch):
+    """The satdap zoo split stage by stage over ``n_switch`` hops (each
+    program's stages in contiguous blocks, path order), the full install,
+    and 1000 packets of mixed traffic with a FORWARD fifth."""
+    from repro_torch.core.plane import empty_program, install_program
+
+    models, X = satdap_zoo
+    progs = [translate(models[v], vid=v) for v in sorted(models)]
+    dps = []
+    for d in range(n_switch):
+        packed = empty_program(PROFILE, device)
+        for prog in progs:
+            st = set(np.array_split(np.arange(len(prog.stages())),
+                                    n_switch)[d].tolist())
+            if st:
+                packed = install_program(packed, prog, PROFILE, stages=st,
+                                         vid=prog.vid)
+        dps.append(packed)
+    full = empty_program(PROFILE, device)
+    for prog in progs:
+        full = install_program(full, prog, PROFILE)
+    rng = np.random.default_rng(11)
+    B = 1000
+    vid = rng.integers(0, 4, B).astype(np.int32)
+    mid = np.asarray([(0, 1, 2, 0)[v] for v in vid], np.int32)
+    pb = PacketBatch.make_request(
+        X[rng.integers(0, len(X), B)], mid=mid, vid=vid,
+        max_features=PROFILE.max_features, n_trees=PROFILE.max_trees,
+        n_hyperplanes=PROFILE.max_hyperplanes)
+    pb = dataclasses.replace(pb, ptype=torch.from_numpy(np.where(
+        rng.random(B) < 0.2, PacketType.FORWARD,
+        PacketType.REQUEST).astype(np.int32)))
+    return dps, full, pb
+
+
+@pytest.mark.parametrize("mode", [None, "layerwise"], ids=str)
+@pytest.mark.parametrize("layout", sorted(LANE_LAYOUTS))
+def test_lane_layouts_replay_on_the_card(cuda, satdap_zoo, layout, mode):
+    """Each lane layout on one card, its lanes on streams of their own and
+    the schedule captured as one graph per bucket: replays at B 1000, 7 and
+    1 equal the same schedule run eagerly and the twin on the full install,
+    with n_micro x switches x ports x the mode's launches a replay; the
+    ragged sizes add one entry each, their replays none."""
+    from repro_torch.runtime import ShardedExecutor
+
+    n_switch, n_ports, n_micro = LANE_LAYOUTS[layout]
+    dps, full, pb = _lane_zoo(satdap_zoo, cuda, n_switch)
+    twin = SwitchEngine(PROFILE, mode="ref", device=cuda)
+    rts = {g: DataplaneRuntime(ShardedExecutor(
+        dps, n_classes=PROFILE.max_classes, mode=mode, n_ports=n_ports,
+        n_micro=n_micro, devices=[cuda] * (n_switch * n_ports), graphs=g))
+        for g in (True, False)}
+    hops = n_micro * n_switch * n_ports
+    per = {None: {"classify_fused": 1},
+           "layerwise": {"tcam_match": PROFILE.max_layers, "forest_vote": 1,
+                         "svm_lookup": 1}}[mode]
+    want_n = {k: hops * per.get(k, 0) for k in _launch_counts()}
+    for rep in range(2):
+        for B in (1000, 7, 1):
+            part = pb.map(lambda x: x[:B])
+            before = _launch_counts()
+            out = rts[True].run(part)
+            torch.cuda.synchronize()
+            assert {k: n - before[k] for k, n in _launch_counts().items()} \
+                == want_n
+            eager, ref_out = rts[False].run(part), twin.classify(full, part)
+            for f in ("rslt", "codes", "svm_acc"):
+                assert torch.equal(getattr(out, f), getattr(eager, f)), \
+                    (B, f)
+                assert torch.equal(getattr(out, f), getattr(ref_out, f)), \
+                    (B, f)
+        assert rts[True].cache_size() == 3 and rts[False].cache_size() == 0
+
+
+def test_lane_swap_between_replays_in_place(cuda, satdap_zoo):
+    """A swap to emptied programs between replays of a 2 x 2 layout: the
+    next replay answers -1 for every request, no resident tensor moves, and
+    swapping back restores the answers."""
+    from repro_torch.runtime import ShardedExecutor
+
+    dps, full, pb = _lane_zoo(satdap_zoo, cuda, 2)
+    ex = ShardedExecutor(dps, n_classes=PROFILE.max_classes, n_ports=2,
+                         n_micro=2, devices=[cuda] * 4)
+    rt = DataplaneRuntime(ex)
+    ptrs = [[t.data_ptr() for t in program_tensors(p)] for p in ex.programs]
+    first = rt.run(pb).rslt.clone()
+    empty = SwitchEngine(PROFILE, device=cuda).empty()
+    rt.swap([empty, empty])
+    req = pb.ptype.to(cuda) == PacketType.REQUEST
+    assert (rt.run(pb).rslt[req] == -1).all()
+    rt.swap(dps)
+    assert torch.equal(rt.run(pb).rslt, first)
+    assert [[t.data_ptr() for t in program_tensors(p)]
+            for p in ex.programs] == ptrs
+    assert rt.cache_size() == 1
+
+
+def test_lane_capture_that_fails_raises_and_keeps_no_entry(cuda, satdap_zoo,
+                                                           monkeypatch):
+    """A hop that reads the host while the lanes are captured: the capture
+    raises, no entry is kept, the next call raises again (nothing gives
+    way to eager), and once the hop is sound the layout captures and
+    answers as the twin."""
+    from repro_torch.runtime import ShardedExecutor, executors
+
+    dps, full, pb = _lane_zoo(satdap_zoo, cuda, 2)
+    ex = ShardedExecutor(dps, n_classes=PROFILE.max_classes, n_ports=2,
+                         n_micro=2, devices=[cuda] * 4)
+    rt = DataplaneRuntime(ex)
+    real = executors._classify_impl
+
+    def syncing(packed, batch, **kw):
+        int(batch.vid.sum())
+        return real(packed, batch, **kw)
+    monkeypatch.setattr(executors, "_classify_impl", syncing)
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            rt.run(pb)
+        assert rt.cache_size() == 0
+    monkeypatch.setattr(executors, "_classify_impl", real)
+    torch.cuda.synchronize()
+    want = SwitchEngine(PROFILE, mode="ref", device=cuda).classify(full, pb)
+    assert torch.equal(rt.run(pb).rslt, want.rslt)
+    assert rt.cache_size() == 1
+
+
+def test_lanes_on_distinct_cards(cuda, satdap_zoo):
+    """With more than one card, a 2 x 2 layout over distinct cards (run
+    eagerly with events) equals the twin; no graph is kept."""
+    from repro_torch.runtime import ShardedExecutor
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two cards, this host has {n}")
+    dps, full, pb = _lane_zoo(satdap_zoo, cuda, 2)
+    lanes = [torch.device("cuda", i % n) for i in range(4)]
+    ex = ShardedExecutor(dps, n_classes=PROFILE.max_classes, n_ports=2,
+                         n_micro=2, devices=lanes)
+    rt = DataplaneRuntime(ex)
+    want = SwitchEngine(PROFILE, mode="ref", device=cuda).classify(full, pb)
+    for _ in range(2):
+        out = rt.run(pb)
+        for f in ("rslt", "codes", "svm_acc"):
+            assert torch.equal(getattr(out, f), getattr(want, f)), f
+    assert rt.cache_size() == 0

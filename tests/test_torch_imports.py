@@ -1,10 +1,11 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package ``repro``.
+"""The port stands alone: ``repro_torch``, its examples
+(``examples/torch_port/``) and ``chip_smoke.py`` import neither JAX nor the
+JAX package ``repro``.
 
 Two checks: an AST scan of every source file for an ``import`` of ``jax``
 or ``repro`` (``repro_torch`` itself is fine), and a subprocess that blocks
-both in ``sys.modules`` and then imports every module of the port and
-``chip_smoke.py``.  Importing also proves that no module builds a kernel or
+both in ``sys.modules`` and then imports every module of the port, every
+example and ``chip_smoke.py``.  Importing also proves that no module builds a kernel or
 touches a card at import time.
 """
 import ast
@@ -16,7 +17,9 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+EXAMPLES = sorted((REPO / "examples" / "torch_port").glob("*.py"))
+SCRIPTS = EXAMPLES + [REPO / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + SCRIPTS
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -46,9 +49,9 @@ def test_port_imports_with_jax_and_repro_blocked():
         "    sys.modules[name] = None",
         f"for m in {modules!r}:",
         "    importlib.import_module(m)",
-        "spec = importlib.util.spec_from_file_location(",
-        f"    'chip_smoke', {str(REPO / 'chip_smoke.py')!r})",
-        "spec.loader.exec_module(importlib.util.module_from_spec(spec))",
+        f"for path in {[str(p) for p in SCRIPTS]!r}:",
+        "    spec = importlib.util.spec_from_file_location('script', path)",
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))",
         "leaked = [m for m in sys.modules if m.split('.')[0] in",
         "          ('jax', 'jaxlib', 'repro') and sys.modules[m] is not None]",
         "assert not leaked, leaked",
