@@ -1,8 +1,9 @@
 """LM serving driver on the PyTorch port: feed a batch of prompts through
 decode steps, then batched greedy decode with the KV cache — fixed shapes,
 and a tenant/model swap writes new weights into the same tensors (the same
-discipline as the ACORN plane).  The port of ``examples/serve_lm.py``; the
-port serves the dense family (``--arch`` of the dense configs).
+discipline as the ACORN plane).  The port of ``examples/serve_lm.py``, for
+an ``--arch`` of any family (the encdec family's cross-attention K/V come
+from ``encode_kv`` over random stub frames first).
 
     PYTHONPATH=src python examples/torch_port/serve_lm.py [--device cpu] \\
         [--arch internlm2-1.8b]
@@ -14,6 +15,7 @@ import torch
 
 from repro_torch.configs import smoke_config
 from repro_torch.models import decode_step, init_decode_state, init_params
+from repro_torch.models.transformer import encode_kv, state_items
 from repro_torch.serving.serve import greedy_decode
 
 
@@ -41,8 +43,12 @@ def main(argv=None) -> None:
 
     # prefill: run the prompt through decode steps to warm the cache
     state = init_decode_state(cfg, B, P + args.gen, device=device)
+    if cfg.family == "encdec":
+        enc = torch.randn(B, cfg.enc_seq, cfg.d_model, device=device,
+                          generator=torch.Generator(device).manual_seed(2))
+        state["ek"], state["ev"] = encode_kv(params, enc.to(cfg.tdtype), cfg)
     buffers = [t.data_ptr() for t in (*params.parameters(),
-                                      *state.values())]
+                                      *(t for _, t in state_items(state)))]
     t0 = time.perf_counter()
     logits = None
     for t in range(P):
@@ -68,7 +74,7 @@ def main(argv=None) -> None:
     logits2, _ = decode_step(params, state, prompts[:, :1], P, cfg)
     assert torch.isfinite(logits2.float()).all()
     assert [t.data_ptr() for t in (*params.parameters(),
-                                   *state.values())] == buffers
+                                   *(t for _, t in state_items(state)))] == buffers
     print("weight swap OK — the same weight and cache tensors, written in "
           "place")
 

@@ -1,12 +1,8 @@
 """The architecture registry: ``get_config(name)``, ``smoke_config(name)``
 and the shape grid ``SHAPES``.
 
-Port of ``src/repro/configs/__init__.py``.  The port runs the dense family
-only, so only the dense configs are copied (``internlm2_1_8b.py``,
-``internlm2_20b.py``, ``starcoder2_15b.py``, ``granite_20b.py``,
-``chameleon_34b.py``, each naming its source); asking for an arch of
-another family raises ``NotImplementedError`` until a later slice ports it
-(ROADMAP.md Queue 1 item 9).
+Port of ``src/repro/configs/__init__.py``: the ten architectures of the
+five families, each config file a copy naming its source.
 """
 from __future__ import annotations
 
@@ -30,15 +26,6 @@ ARCH_IDS = [
     "chameleon-34b",
 ]
 
-# the archs whose family the port does not run yet
-_NOT_PORTED = {
-    "recurrentgemma-2b": "hybrid",
-    "whisper-tiny": "encdec",
-    "grok-1-314b": "moe",
-    "qwen3-moe-235b-a22b": "moe",
-    "rwkv6-7b": "rwkv",
-}
-
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 
 
@@ -61,10 +48,6 @@ SHAPES = {
 def _module(name: str):
     if name not in _MOD:
         raise KeyError(f"unknown arch {name!r}: one of {ARCH_IDS}")
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} ({_NOT_PORTED[name]}) is not ported yet: the port runs "
-            "the dense family (ROADMAP.md Queue 1 item 9)")
     return importlib.import_module(f"repro_torch.configs.{_MOD[name]}")
 
 

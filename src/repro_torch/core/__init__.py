@@ -10,4 +10,6 @@
     planner.py   ILP / DP placement of program stages on a path (copy)
     distributed_plane.py  a plan -> per-switch partial programs
     netsim.py    latency / overhead / availability model, J_L (copy)
+    baselines/   the paper's comparison systems (SwitchTree, LEO, DINC) and
+                 Table 3's feature limits (copy)
 """

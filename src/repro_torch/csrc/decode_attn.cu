@@ -40,6 +40,12 @@
 //     misses one bf16 ulp of the output on short rows.
 //   * f32: CUDA cores, a warp (half a warp at D 16) per key row, lanes over
 //     D, up to 8 query rows a block, online softmax in registers.
+//   * D 256 (recurrentgemma's heads), bf16: a warp's query fragments
+//     (D / 16 x 4 registers) and accumulator (D / 8 x 4) would take 192
+//     registers before anything else, so at D above 128 the block's 16 query
+//     rows sit in shared memory after the ring (16 rows of D * 2 + PAD bytes,
+//     rows 132 words apart: no bank conflicts) and each k-step loads its A
+//     fragment from there; the accumulator stays in registers.
 // The warps' partials, then the spans', merge in a fixed order, so a run is
 // deterministic.
 
@@ -243,8 +249,22 @@ __device__ void finish(const float* pm, const float* pl, const float* pacc,
   if (threadIdx.x == 0) counters[group] = 0;
 }
 
-// bf16 on tensor cores: every warp holds the block's 16 query rows; warp kg
-// takes the 16-key chunks kg, kg + WARPS, ... of every tile.
+// The A fragment of k-step kk (columns kk * 16 ..) of the 16 query rows
+// staged in shared memory at `qs`, rows `qstride` bytes apart.
+__device__ __forceinline__ void q_frag(unsigned (&a)[4], const char* qs,
+                                       int qstride, int kk, int g, int t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int col = kk * 16 + half * 8 + 2 * t;
+    a[2 * half] = *reinterpret_cast<const unsigned*>(qs + g * qstride + col * 2);
+    a[2 * half + 1] =
+        *reinterpret_cast<const unsigned*>(qs + (g + 8) * qstride + col * 2);
+  }
+}
+
+// bf16 on tensor cores: every warp holds the block's 16 query rows (in
+// registers, or at D above 128 in shared memory); warp kg takes the 16-key
+// chunks kg, kg + WARPS, ... of every tile.
 template <int D>
 __global__ void __launch_bounds__(THREADS) attn_bf16(
     const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
@@ -257,6 +277,7 @@ __global__ void __launch_bounds__(THREADS) attn_bf16(
     float scale) {
   constexpr int WK = WARPS, QC = 16, TILE = TILE_BF16;
   constexpr int STRIDE = D * 2 + PAD, SLOT = 2 * TILE * STRIDE;
+  constexpr bool Q_SMEM = D > 128;
   extern __shared__ __align__(16) char smem[];
   __shared__ int s_last;
   const int G = Hq / Hkv;
@@ -265,18 +286,31 @@ __global__ void __launch_bounds__(THREADS) attn_bf16(
   const int kg = warp, g = lane / 4, t = lane % 4;
   const int r0 = g, r1 = g + 8;
 
-  // A fragments of the warp's 16 query rows (rows past G are zeros)
-  unsigned qa[D / 16][4];
+  // A fragments of the warp's 16 query rows (rows past G are zeros): in
+  // registers, or staged once in shared memory after the ring (read after
+  // the tile loop's first barrier)
+  unsigned qa[Q_SMEM ? 1 : D / 16][4];
+  char* qs = smem + STAGES * SLOT;
   const __nv_bfloat16* qb = q + ((size_t)w.b * Hq + (size_t)w.h * G + w.g0) * D;
+  if constexpr (Q_SMEM) {
+    for (int i = threadIdx.x; i < QC * (D / 8); i += THREADS) {
+      const int r = i / (D / 8), ch = i % (D / 8);
+      const uint4 x = r < w.rows
+                          ? *reinterpret_cast<const uint4*>(qb + r * D + ch * 8)
+                          : make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(qs + r * STRIDE + ch * 16) = x;
+    }
+  } else {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int col = kk * 16 + half * 8 + 2 * t;
-      qa[kk][2 * half] =
-          r0 < w.rows ? *reinterpret_cast<const unsigned*>(qb + r0 * D + col) : 0u;
-      qa[kk][2 * half + 1] =
-          r1 < w.rows ? *reinterpret_cast<const unsigned*>(qb + r1 * D + col) : 0u;
+      for (int half = 0; half < 2; ++half) {
+        const int col = kk * 16 + half * 8 + 2 * t;
+        qa[kk][2 * half] =
+            r0 < w.rows ? *reinterpret_cast<const unsigned*>(qb + r0 * D + col) : 0u;
+        qa[kk][2 * half + 1] =
+            r1 < w.rows ? *reinterpret_cast<const unsigned*>(qb + r1 * D + col) : 0u;
+      }
     }
   }
   float acc[D / 8][4];
@@ -311,10 +345,17 @@ __global__ void __launch_bounds__(THREADS) attn_bf16(
       float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
+        unsigned a[4];
+        if constexpr (Q_SMEM) {
+          q_frag(a, qs, STRIDE, kk, g, t);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = qa[kk][e];
+        }
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const char* row = ks + (key0 + 8 * j + g) * STRIDE + (kk * 16 + 2 * t) * 2;
-          mma_bf16(s[j], qa[kk], *reinterpret_cast<const unsigned*>(row),
+          mma_bf16(s[j], a, *reinterpret_cast<const unsigned*>(row),
                    *reinterpret_cast<const unsigned*>(row + 16));
         }
       }
@@ -411,9 +452,10 @@ __global__ void __launch_bounds__(THREADS) attn_bf16(
                            reinterpret_cast<float*>(smem));
 }
 
-// EPL consecutive elements as one aligned vector load.
+// EPL consecutive elements as aligned vector loads (16 bytes at most each:
+// a staged row of D 256 floats is 1040 bytes, 16- but not 32-byte aligned).
 template <typename T, int EPL>
-struct alignas(sizeof(T) * EPL) Pack {
+struct alignas(sizeof(T) * EPL < 16 ? sizeof(T) * EPL : 16) Pack {
   T x[EPL];
 };
 
@@ -531,12 +573,14 @@ __global__ void __launch_bounds__(THREADS) attn_f32(
                    counters, out, &s_last, reinterpret_cast<float*>(smem));
 }
 
-// Shared memory of a block: the K/V ring, reused for the warps' partials.
+// Shared memory of a block: the K/V ring, reused for the warps' partials;
+// in bf16 at D above 128 the query rows after it.
 int smem_bytes(int D, int esize, int qc, int tile) {
   const int ring = STAGES * 2 * tile * (D * esize + PAD);
   const int parts = esize == 2 ? WARPS
                                : WARPS * (32 / (D / (D >= 32 ? D / 32 : 1)));
-  return ring > parts * qc * (D + 2) * 4 ? ring : parts * qc * (D + 2) * 4;
+  const int q = esize == 2 && D > 128 ? qc * (D * esize + PAD) : 0;
+  return (ring > parts * qc * (D + 2) * 4 ? ring : parts * qc * (D + 2) * 4) + q;
 }
 
 template <typename... P, typename... A>
@@ -592,7 +636,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
 // `counters` (int32, one per group) must be zero before the first launch;
 // the kernel leaves them zero.  Launches on `stream` and returns
 // cudaGetLastError() (0 = launched); cudaErrorInvalidValue for a head dim
-// other than 16, 32, 64 or 128, Hq not a multiple of Hkv or a geometry
+// other than 16, 32, 64, 128 or 256, Hq not a multiple of Hkv or a geometry
 // mismatch.
 extern "C" int acorn_decode_attn(const void* q, const void* k, const void* v,
                                  const void* kv_len, void* out, void* ws,
@@ -619,6 +663,7 @@ extern "C" int acorn_decode_attn(const void* q, const void* k, const void* v,
     case 32: return (int)launch_d<32>(q, k, v, n_, out, ws_, c_, S, Hq, Hkv, n_chunks, split_len, n_split, ws_rows, bf16, qc, smem, grid, scale, st);
     case 64: return (int)launch_d<64>(q, k, v, n_, out, ws_, c_, S, Hq, Hkv, n_chunks, split_len, n_split, ws_rows, bf16, qc, smem, grid, scale, st);
     case 128: return (int)launch_d<128>(q, k, v, n_, out, ws_, c_, S, Hq, Hkv, n_chunks, split_len, n_split, ws_rows, bf16, qc, smem, grid, scale, st);
+    case 256: return (int)launch_d<256>(q, k, v, n_, out, ws_, c_, S, Hq, Hkv, n_chunks, split_len, n_split, ws_rows, bf16, qc, smem, grid, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

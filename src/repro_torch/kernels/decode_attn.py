@@ -34,7 +34,7 @@ __all__ = ["decode_attn", "decode_attn_plain", "plan", "Plan", "HEAD_DIMS",
            "SOURCE"]
 
 SOURCE = "decode_attn"           # csrc/decode_attn.cu
-HEAD_DIMS = (16, 32, 64, 128)    # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel's instantiations
 _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 _ALIGN = 16                      # bytes: the kernel's widest vector load
 # csrc/decode_attn.cu's constants (the C entry refuses a geometry it would
@@ -73,7 +73,8 @@ def plan(B: int, Hq: int, Hkv: int, D: int, S: int,
     """The kernel's geometry for q [B, Hq, D] over a cache of S rows.
 
     bf16 runs on tensor cores with 16 query rows a block (G padded to 16,
-    or cut into chunks of 16), f32 on CUDA cores with 1, 2, 4 or 8.  The cache splits
+    or cut into chunks of 16; at D above 128 the rows are staged in shared
+    memory after the ring), f32 on CUDA cores with 1, 2, 4 or 8.  The cache splits
     into spans so that the grid holds at most ``WAVES`` times the blocks the
     card keeps resident (a whole number of waves), with no span shorter than ``MIN_SPLIT`` rows (or one
     tile), none starting past the cache, and no more than the merging block
@@ -90,6 +91,8 @@ def plan(B: int, Hq: int, Hkv: int, D: int, S: int,
     tile = TILE[dtype]
     smem = max(STAGES * 2 * tile * (D * esize + PAD),
                parts * qc * (D + 2) * 4)
+    if bf16 and D > 128:
+        smem += qc * (D * esize + PAD)
     resident = max(1, min(SMEM_PER_SM // (smem + BLOCK_RESERVED),
                           MAX_RESIDENT))
     groups = B * Hkv * n_chunks

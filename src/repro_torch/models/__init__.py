@@ -1,8 +1,7 @@
-"""The LM substrate: the dense family as a torch ``nn.Module`` and plain
-step functions.
+"""The LM substrate: the five block families (dense, moe, hybrid, rwkv,
+encdec) as torch ``nn.Module`` trees and plain step functions.
 
-Port of ``src/repro/models/__init__.py`` (the same exported names); the
-other families wait for later slices (ROADMAP.md Queue 1 item 9).
+Port of ``src/repro/models/__init__.py`` (the same exported names).
 """
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.transformer import (

@@ -1,19 +1,29 @@
-"""GQA attention: causal over a sequence (single-shot, q-chunked, or
-key-chunked with an online softmax), and single-token decode against a KV
-cache.
+"""GQA attention: over a sequence (causal or not, with an optional sliding
+window; single-shot, q-chunked, or key-chunked with an online softmax), and
+single-token decode against a KV cache.
 
-Port of ``src/repro/models/attention.py``, the parts the dense family's
-forward and decode run: ``gqa_attention`` is always causal with the queries
-at positions 0..S-1 (JAX's ``window`` and ``q_offset`` serve the hybrid and
-encdec families, which are not ported).  It takes q [B, S, Hq, D], k/v
-[B, T, Hkv, D] and folds the GQA group into the head axis with a reshape
-(no materialized repeat); the chunk loops that JAX runs with ``lax.scan``
-are Python loops.  ``decode_attention`` goes through
-``kernels.ops.decode_attn``: the CUDA kernel for CUDA tensors (one launch
-per call), the twin for CPU ones.  Where JAX's jnp ``decode_attention``
-returns the mean of V for a row with ``kv_len = 0`` (a softmax over all
-``-1e30``), the port returns zeros, as the TPU kernel does; the decode step
-always has ``kv_len >= 1``.
+Port of ``src/repro/models/attention.py`` (``gqa_attention`` :19-110,
+``decode_attention`` :113-149).  ``gqa_attention`` takes q [B, S, Hq, D],
+k/v [B, T, Hkv, D] and folds the GQA group into the head axis with a
+reshape (no materialized repeat); the chunk loops that JAX runs with
+``lax.scan`` are Python loops.  Its options are the reference's:
+``causal=False`` (whisper's encoder and cross attention), ``window`` (the
+hybrid family's local attention: a query at position p sees keys in
+(p - window, p]) in both the single-shot and the online block, and
+``q_offset`` (the queries' first position).
+
+``decode_attention`` goes through ``kernels.ops.decode_attn``: the CUDA
+kernel for CUDA tensors (one launch per call), the twin for CPU ones.  Its
+``window`` is accepted and has no effect, as in the reference (which never
+reads it): the local attention's ring buffer lives in the caller's cache,
+``T = min(window, cache_len)`` slots written at ``pos % T``
+(``transformer._decode_attn_layer``), so once warm every slot is valid and
+``kv_len = min(pos + 1, T)`` covers them.  Where JAX's jnp
+``decode_attention`` returns the mean of V for a row with ``kv_len = 0``
+(a softmax over all ``-1e30``), the port returns zeros, as the TPU kernel
+does; the decode step always has ``kv_len >= 1``.  ``mxu_native`` (bf16
+operands into the matmuls) is not ported: its one user is the dry run's
+overrides, which come with the training slice.
 """
 from __future__ import annotations
 
@@ -26,13 +36,16 @@ __all__ = ["gqa_attention", "decode_attention"]
 _NEG = -1e30
 
 
-def _causal(S: int, T: int, q_start: int, k_start: int,
+def _causal(S: int, T: int, q_start: int, k_start: int, window: int,
             device) -> torch.Tensor:
-    """Causal mask [S, T]: query i sits at position q_start + i, key j at
-    k_start + j."""
+    """Causal (+ optional sliding window) mask [S, T]: query i sits at
+    position q_start + i, key j at k_start + j."""
     qpos = q_start + torch.arange(S, device=device)[:, None]
     kpos = k_start + torch.arange(T, device=device)[None, :]
-    return kpos <= qpos
+    m = kpos <= qpos
+    if window > 0:
+        m &= kpos > qpos - window
+    return m
 
 
 def gqa_attention(
@@ -40,6 +53,9 @@ def gqa_attention(
     k: torch.Tensor,         # [B, T, Hkv, D]
     v: torch.Tensor,         # [B, T, Hkv, D]
     *,
+    causal: bool = True,
+    window: int = 0,
+    q_offset: int = 0,
     q_chunk: int = 0,        # 0 = single-shot; >0 = loop over query chunks
     k_chunk: int = 0,        # >0 = online softmax over key chunks ("flash")
 ) -> torch.Tensor:
@@ -53,8 +69,10 @@ def gqa_attention(
     def block(q_blk, start):
         # q_blk [B, s, Hkv, G, D] -> out [B, s, Hkv, G, D]
         logits = torch.einsum("bshgd,bthd->bhgst", q_blk.float(), kf) * scale
-        m = _causal(q_blk.shape[1], T, start, 0, q.device)
-        p = torch.softmax(torch.where(m, logits, _NEG), dim=-1)
+        if causal:
+            m = _causal(q_blk.shape[1], T, start, 0, window, q.device)
+            logits = torch.where(m, logits, _NEG)
+        p = torch.softmax(logits, dim=-1)
         return torch.einsum("bhgst,bthd->bshgd", p, vf)
 
     def block_online(q_blk, start):
@@ -69,8 +87,10 @@ def gqa_attention(
             k_b = kf[:, j * k_chunk:(j + 1) * k_chunk]
             v_b = vf[:, j * k_chunk:(j + 1) * k_chunk]
             logits = torch.einsum("bshgd,bthd->bhgst", qf, k_b) * scale
-            msk = _causal(s, k_chunk, start, j * k_chunk, q.device)
-            logits = torch.where(msk, logits, _NEG)
+            if causal:
+                msk = _causal(s, k_chunk, start, j * k_chunk, window,
+                              q.device)
+                logits = torch.where(msk, logits, _NEG)
             m_new = torch.maximum(m, logits.amax(dim=-1))
             p = torch.exp(logits - m_new[..., None])
             alpha = torch.exp(m - m_new)
@@ -82,10 +102,10 @@ def gqa_attention(
 
     blk = block_online if (k_chunk and T % k_chunk == 0) else block
     if q_chunk and S > q_chunk and S % q_chunk == 0:
-        out = torch.cat([blk(qg[:, i:i + q_chunk], i)
+        out = torch.cat([blk(qg[:, i:i + q_chunk], q_offset + i)
                          for i in range(0, S, q_chunk)], dim=1)
     else:
-        out = blk(qg, 0)
+        out = blk(qg, q_offset)
     return out.reshape(B, S, Hq, D).to(q.dtype)
 
 
@@ -100,13 +120,13 @@ def decode_attention(
     mode: str | None = None,
 ) -> torch.Tensor:
     """One-token GQA decode through ``ops.decode_attn`` (``mode``: None
-    follows the device, ``"cuda"`` the kernel, ``"ref"`` the twin)."""
-    if window > 0:
-        raise NotImplementedError("the ring-buffer (window) decode is not "
-                                  "ported yet (ROADMAP.md Queue 1 item 9)")
+    follows the device, ``"cuda"`` the kernel, ``"ref"`` the twin).
+    ``window`` has no effect, as in the reference: a ring-buffer cache is
+    the caller's (see the module's docstring)."""
     if mxu_native:
         raise NotImplementedError("attn_mxu_native is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 9)")
+                                  "(ROADMAP.md Queue 1 item 9c, with the "
+                                  "dry run)")
     B, _, Hq, D = q.shape
     out = ops.decode_attn(q.reshape(B, Hq, D), k_cache, v_cache, kv_len,
                           mode=mode)

@@ -6,8 +6,9 @@ Port of ``src/repro/serving/serve.py``: ``make_prefill_step`` (:28),
 JAX has ``lax.scan``) and ``ZooServer`` (:49-175), a ``DataplaneRuntime``
 hosting ``profile.max_versions`` resident versions per pipeline, with
 install / evict / A-B traffic-split rollout as control-plane operations and
-admission bucketing on every classify.  Swapping LM weights is an in-place
-write into the same parameter tensors (``DenseLM.init_`` / ``load_``).
+admission bucketing on every classify.  The LM steps serve every family
+(``models.transformer``); swapping LM weights is an in-place write into the
+same parameter tensors (``LM.init_`` / ``load_``).
 """
 from __future__ import annotations
 
@@ -26,19 +27,20 @@ __all__ = ["make_prefill_step", "make_decode_step", "greedy_decode",
 
 
 def make_prefill_step(cfg: ArchConfig, *, q_chunk: int = 1024):
-    """prefill(params, tokens) -> logits [B, S, V].
+    """prefill(params, tokens[, enc_inputs]) -> logits [B, S, V].
 
     q-chunked attention bounds the logits working set for long prefill."""
 
-    def prefill(params, tokens):
-        return forward(params, tokens, cfg, q_chunk=q_chunk)
+    def prefill(params, tokens, enc_inputs=None):
+        return forward(params, tokens, cfg, enc_inputs=enc_inputs,
+                       q_chunk=q_chunk)
 
     return prefill
 
 
 def make_decode_step(cfg: ArchConfig):
     """step(params, state, tokens [B,1], pos) -> (logits [B,1,V], state),
-    the caches written in place."""
+    the caches and recurrent state written in place."""
 
     def step(params, state, tokens, pos):
         return decode_step(params, state, tokens, pos, cfg)

@@ -14,7 +14,9 @@ f32 atol 2e-5, rtol 1e-2; at full width bf16 to one unit in the last
 place), and the LM on the card to the CPU run within f32 atol/rtol 1e-4.
 The redesigned kernels are also held at their geometry's edges:
 ``decode_attn`` at kv_len on and beside its tile and span edges for G 1-48
-and D 16-128, ``classify_fused`` on the conformance draws (drawn with the
+and D 16-256, at the LM families' decode shapes (D 256, G 16, G 6, G 1
+over whisper's 1500-row encoder cache), and under each family's decode
+step (kernel against twin and CPU, exact launches), ``classify_fused`` on the conformance draws (drawn with the
 port's own models) and on blocks of one, all, an empty and an out-of-range
 version, the four staged kernels at B 1, B just past a block's packets,
 T 1, 3 and 33, H 1 and 16, L 13, P 1 and 9, C 33, and ``tcam_match`` on
@@ -445,6 +447,8 @@ def test_decode_attn_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         decode_attn(q, k, v, kv_len.long())
     with pytest.raises(ValueError):         # head dim
         decode_attn(*attn_case(cuda, 2, 4, 2, 96, 9, torch.float32))
+    with pytest.raises(ValueError):         # head dim past the largest
+        decode_attn(*attn_case(cuda, 2, 4, 2, 512, 9, torch.float32))
     with pytest.raises(ValueError):         # Hq % Hkv
         decode_attn(*attn_case(cuda, 2, 6, 4, 32, 9, torch.float32))
     with pytest.raises(ValueError):         # layout
@@ -500,7 +504,7 @@ def edge_lengths(p, S):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("G", [1, 2, 6, 12, 48])
 def test_decode_attn_at_split_and_tile_edges(cuda, G, D, dtype):
     """The split-KV kernel against its plain version with kv_len at and
@@ -532,6 +536,81 @@ def test_decode_attn_full_width_shapes(cuda, B, Hq, Hkv, D, S):
     assert n == 1
     torch.testing.assert_close(got.float(), decode_attn_plain(*ins).float(),
                                **ATTN_TOL_FULL[torch.bfloat16])
+
+
+# the families' decode shapes (B, Hq, Hkv, D, S): recurrentgemma-2b (D 256,
+# its window of 2048, and the 96 positions a served request reaches: one
+# span shorter than a tile's multiple), qwen3-moe (G 16; at 4096 and at the
+# served 96), grok-1 (G 6), whisper-tiny's self attention and its cross
+# attention over the 1500-row encoder cache (G 1)
+FAMILY_SHAPES = [(16, 10, 1, 256, 2048), (4, 10, 1, 256, 2048),
+                 (16, 10, 1, 256, 96), (16, 64, 4, 128, 4096),
+                 (16, 64, 4, 128, 96), (16, 48, 8, 128, 4096),
+                 (16, 6, 6, 64, 96), (16, 6, 6, 64, 1500)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("B,Hq,Hkv,D,S", FAMILY_SHAPES)
+def test_decode_attn_at_the_families_shapes(cuda, B, Hq, Hkv, D, S, dtype):
+    """One launch against the plain version at the full-width bound, rows
+    of kv_len 1 and S among them."""
+    ins = attn_case(cuda, B, Hq, Hkv, D, S, dtype, seed=D)
+    got, n = _launched(decode_attn, lambda: decode_attn(*ins))
+    assert n == 1
+    torch.testing.assert_close(got.float(), decode_attn_plain(*ins).float(),
+                               **ATTN_TOL_FULL[dtype])
+
+
+# decode_attn launches a step of each family's smoke config
+FAMILY_LAUNCHES = {"internlm2-1.8b": lambda c: c.n_layers,
+                   "qwen3-moe-235b-a22b": lambda c: c.n_layers,
+                   "recurrentgemma-2b": lambda c: c.n_layers // 3,
+                   "rwkv6-7b": lambda c: 0,
+                   "whisper-tiny": lambda c: 2 * c.n_layers}
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY_LAUNCHES))
+def test_family_decode_on_the_card_equals_the_twin(cuda, arch):
+    """Each family's smoke config in f32, ten decode steps on the card
+    through the kernel (exact launches a step) against the same steps
+    through the twin (``mode="ref"``) and against the CPU, within f32
+    atol/rtol 1e-4; the hybrid's ring of 8 slots wraps."""
+    cfg = smoke_config(arch).scaled(dtype="float32")
+    cpu = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                  device="cpu")
+    card = transformer.new_model(cfg, device=cuda)
+    with torch.no_grad():
+        for p, w in zip(card.parameters(), cpu.parameters()):
+            p.copy_(w)
+    B, S = 3, 10
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (B, S)))
+    enc = torch.randn(B, max(cfg.enc_seq, 1), cfg.d_model,
+                      generator=torch.Generator().manual_seed(2))
+
+    def state(device, model):
+        st = transformer.init_decode_state(cfg, B, S, device=device)
+        if cfg.family == "encdec":
+            ks, vs = transformer.encode_kv(model, enc.to(device), cfg)
+            st["ek"].copy_(ks)
+            st["ev"].copy_(vs)
+        return st
+
+    runs = {"kernel": (card, state(cuda, card), None),
+            "twin": (card, state(cuda, card), "ref"),
+            "cpu": (cpu, state("cpu", cpu), None)}
+    for t in range(S):
+        out = {}
+        for name, (model, st, mode) in runs.items():
+            dev = "cpu" if name == "cpu" else cuda
+            (lg, _), n = _launched(decode_attn, lambda: transformer.decode_step(
+                model, st, toks[:, t:t + 1].to(dev), t, cfg, mode=mode))
+            assert n == (FAMILY_LAUNCHES[arch](cfg) if name == "kernel" else 0)
+            out[name] = lg.cpu()
+        torch.testing.assert_close(out["kernel"], out["twin"], atol=1e-4,
+                                   rtol=1e-4)
+        torch.testing.assert_close(out["kernel"], out["cpu"], atol=1e-4,
+                                   rtol=1e-4)
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,D,S", [(16, 48, 1, 128, 4096),

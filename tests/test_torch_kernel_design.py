@@ -202,7 +202,7 @@ def test_plan_fills_two_waves_at_the_timed_shapes(shape):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
 @pytest.mark.parametrize("S", [0, 1, 33, 700, 4096, 32768])
 @pytest.mark.parametrize("G", [1, 2, 6, 12, 48])
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
 def test_plan_spans_cover_the_cache_and_fit(D, G, S, dtype):
     """Spans cover [0, S) with none starting past it, each a whole number
     of tiles; the query chunks cover G; shared memory fits a block."""
@@ -235,6 +235,31 @@ def test_classify_packets_per_block(B, T, F, L):
     assert (pb - 1) * T < cf_module.WALK_WARPS * cf_module.WALKS_PER_WARP
     if B >= 4096:
         assert -(-B // pb) >= 2 * SMS
+
+
+# recurrentgemma-2b's heads (10 query, 1 KV, D 256) at B 16 and B 4 over its
+# window of 2048: (dtype, the K/V ring, the staged query rows)
+D256 = {torch.bfloat16: (3 * 2 * 64 * (512 + 16), 16 * (512 + 16)),
+        torch.float32: (3 * 2 * 32 * (1024 + 16), 0)}
+
+
+@pytest.mark.parametrize("B", [16, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_plan_at_head_dim_256(dtype, B):
+    """D 256 fits one block an SM: bf16 202,752 bytes of ring and 8,448 of
+    query rows (the 16 rows' A fragments would take 64 registers a
+    thread), f32 199,680 of ring; both under the 232,448 a block may
+    take, with the card's 1,024 reserved a block beside them."""
+    p = plan(B, 10, 1, 256, 2048, dtype)
+    ring, rows = D256[dtype]
+    assert p.smem == ring + rows <= SMEM_PER_BLOCK
+    assert p.smem + attn_module.BLOCK_RESERVED <= attn_module.SMEM_PER_SM
+    assert 2 * (p.smem + attn_module.BLOCK_RESERVED) > attn_module.SMEM_PER_SM
+    assert p.resident == 1
+    assert p.n_split * p.split_len >= 2048 and p.n_split > 1
+    assert p.blocks == B * p.n_chunks * p.n_split
+    assert p.n_chunks == (1 if dtype == torch.bfloat16 else 2)
+    assert 256 in attn_module.HEAD_DIMS
 
 
 def test_lut_fh_is_the_lut_with_hyperplanes_innermost():
