@@ -173,16 +173,36 @@ JAX package.  Phases, each fatal on failure:
              slots wrapped (2112 positions, the last 64 held to
              ``forward``'s window mask); ``decode_attn`` timed at the
              families' shapes beside its plain version and SDPA.
+16. train  — the training stack through ``launch/train.py``'s functions:
+             internlm2-1.8b at full width and depth (bf16 weights, f32
+             AdamW state by the launcher's rule, remat on), seq 4096,
+             global batch 8, n_micro 4; one warm-up and 5 timed steps, the
+             loss of each, step 1's batch again after them (it must be
+             below its loss at step 1: 6 warm-up steps do not move the
+             stream's loss beyond its noise), ms a step,
+             tokens/s, the ``model_flops`` bound and its share (mfu), peak
+             memory, one step under the profiler (busy share, top ops) and
+             ``adamw_update`` alone; no kernel launched on this path (every
+             count 0: training's attention is the plain f32 one, as in the
+             reference).  Then one f32 step of each family's smoke config
+             on the card against the same step on the CPU (loss, gradients,
+             grad_norm and the updated weights at the CPU tests' f32
+             bounds; gradients and grad_norm x 1.01 refused).  Last, as a
+             child with deterministic algorithms, internlm2-1.8b at full
+             width and 2 layers: 4 steps straight against 2, a checkpoint
+             saved and restored into other weights, and 2 more, bit-equal.
 
-Each main path (5, 6, 7, 8, 11, 12, 13, 15) runs with every kernel's launch count set
-to 0 just before it and read just after; a kernel of the path that never
-launched fails the run.  A replayed graph adds the launches its capture
+Each main path (5, 6, 7, 8, 11, 12, 13, 15, 16) runs with every kernel's
+launch count set to 0 just before it and read just after; a kernel of the
+path that never launched fails the run, and so does any launch on phase
+16's path.  A replayed graph adds the launches its capture
 counted.  Output: a ``paths`` JSON line, a ``kernels`` JSON line (with
 ``launch_floor_ms``), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  ``--two-streams`` runs only phase 4's
 two-stream check, against the sources beside the script;
 ``--capture-failure`` only phase 10's failing capture; ``--families``
-only the build, phase 4's family shapes and phase 15.  Every bound comes
+only the build, phase 4's family shapes and phase 15; ``--train`` only the
+build and phase 16 (``--train-resume``: its child).  Every bound comes
 from ``repro_torch.analysis.roofline`` (``HW()``: the H100's peaks).
 """
 from __future__ import annotations
@@ -3600,6 +3620,376 @@ def examples_phase(timeout=300):
     return seconds
 
 
+# ------------------------------------------------ phase 16: the training stack
+# internlm2-1.8b at full width and depth through launch/train.py's functions:
+# the reference's train_4k seq (src/repro/configs/__init__.py:39), the global
+# batch cut from 256 to 8 for one card; n_micro = microbatch_plan(...) = 4
+TRAIN_ARCH = "internlm2-1.8b"
+TRAIN_SEQ, TRAIN_BATCH = 4096, 8
+TRAIN_TIMED = 5                  # timed steps after one warm-up step
+# one f32 train step of each family's smoke config, card against CPU
+TRAIN_FAMILIES = ("internlm2-1.8b", "qwen3-moe-235b-a22b", "recurrentgemma-2b",
+                  "rwkv6-7b", "whisper-tiny")
+# the f32 holds of the CPU tests (tests/torch_train_lane.py): loss and
+# grad_norm at 1e-4, each gradient leaf scaled by its largest |g|, and the
+# updated weights where |g| > 1e-3 x the leaf's largest or g == 0 (at most
+# 5% of the elements left out)
+TRAIN_TOL = (1e-4, 1e-4)
+TRAIN_MASK, TRAIN_LEFT_OUT = 1e-3, 0.05
+# the resume check: full width, 2 of the 24 layers (505 M parameters; the
+# full depth's checkpoint would be 22.7 GB of npz), 4 steps straight against
+# 2 + save + restore into other weights + 2, in a child process with
+# deterministic algorithms
+RESUME_LAYERS = 2
+RESUME_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+
+
+def train_setup(cfg, device, seed, steps):
+    """A run of ``launch/train.py``: the launcher's AdamW rule, its model,
+    state, token pipeline and step at phase 16's shape."""
+    from repro_torch.launch.train import opt_config, setup
+    from repro_torch.train.step import microbatch_plan
+
+    n_micro = microbatch_plan(cfg, TRAIN_SEQ, TRAIN_BATCH, 1)
+    return setup(cfg, seq=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                 n_micro=n_micro, device=device, seed=seed,
+                 ocfg=opt_config(cfg, smoke=False, steps=steps))
+
+
+def train_profile(run, batch, torch):
+    """One train step under ``torch.profiler``: wall and device busy ms,
+    and the top torch ops by the device time of the kernels each launched
+    itself (a split with no op counted twice)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        run.step(run.model, run.opt, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = p.key_averages()
+
+    def dev_ms(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0)) / 1e3
+    busy = sum(dev_ms(e) for e in events if e.device_type != DeviceType.CPU)
+    if busy == 0:
+        print("  profiler: no device time recorded; busy share not measured")
+        return dict(wall_ms=wall_ms, busy_ms=None, ops={})
+    print(f"  profiled step: wall {wall_ms:.1f} ms, device busy {busy:.1f} "
+          f"ms ({100 * busy / wall_ms:.1f}% of the wall)")
+    ops = sorted((e for e in events if e.device_type == DeviceType.CPU
+                  and dev_ms(e) > 0), key=dev_ms, reverse=True)
+    print("  top ops by the device time of their own kernels (ms, share "
+          "of busy, calls):")
+    for e in ops[:12]:
+        print(f"    {dev_ms(e):9.1f}  {100 * dev_ms(e) / busy:5.1f}%  "
+              f"{e.count:6d}  {e.key[:60]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy,
+                ops={e.key: dev_ms(e) for e in ops[:12]})
+
+
+def optimizer_ms(run, torch, n=3):
+    """Device ms of one ``adamw_update`` over the model's weights and
+    state, on random f32 gradients (CUDA events, the mean of ``n``)."""
+    from repro_torch.optim.adamw import adamw_update
+
+    gen = torch.Generator(device=run.device).manual_seed(5)
+    grads = {k: torch.randn(p.shape, generator=gen, device=run.device) * 1e-5
+             for k, p in run.model.named_parameters()}
+    adamw_update(grads, run.opt, run.model, run.ocfg)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(n):
+        adamw_update(grads, run.opt, run.model, run.ocfg)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def batch_loss(run, batch) -> float:
+    """``loss_fn`` over ``batch`` under the run's current weights, the mean
+    over its microbatches as the step takes it, with no gradient."""
+    import torch
+    from repro_torch.train.step import loss_fn
+
+    with torch.no_grad():
+        return sum(float(loss_fn(run.model, batch["tokens"][i],
+                                 batch["labels"][i], run.cfg))
+                   for i in range(run.n_micro)) / run.n_micro
+
+
+def train_full_width(seed, device):
+    """Phase 16 part 1: internlm2-1.8b at full width and depth, one warm-up
+    and ``TRAIN_TIMED`` timed steps through the launcher's functions."""
+    import statistics
+
+    import torch
+    from repro_torch.analysis import HW, model_flops
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import next_batch
+
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    run = train_setup(cfg, device, seed, steps=1 + TRAIN_TIMED)
+    n_param = sum(p.numel() for p in run.model.parameters())
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_param:,} parameters in {cfg.dtype}, AdamW state "
+          f"{run.ocfg.state_dtype}, lr {run.ocfg.lr} (warm-up "
+          f"{run.ocfg.warmup_steps}), remat on; seq {TRAIN_SEQ}, global "
+          f"batch {TRAIN_BATCH}, n_micro {run.n_micro}")
+    losses, times = [], []
+    for s in range(1 + TRAIN_TIMED):
+        batch = next_batch(run)
+        if s == 0:
+            first = batch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = run.step(run.model, run.opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        print(f"  step {s + 1}: loss {losses[-1]:.5f}, grad_norm "
+              f"{float(m['grad_norm']):.4f}, lr {float(m['lr']):.3g}, "
+              f"{times[-1] * 1e3:.1f} ms{' (warm-up)' if s == 0 else ''}")
+    peak = torch.cuda.max_memory_allocated()
+    again = batch_loss(run, first)
+    print(f"  the stream's loss from step 1 to {1 + TRAIN_TIMED}: "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}; step 1's batch again after "
+          f"the steps: {again:.5f} (at step 1: {losses[0]:.5f})")
+    if not again < losses[0]:
+        raise AssertionError(f"training did not lower step 1's batch's "
+                             f"loss: {losses[0]} -> {again}")
+    step_ms = statistics.median(times[1:]) * 1e3
+    flops = model_flops(cfg, TRAIN_SEQ, TRAIN_BATCH, "train")
+    bound_ms = flops / HW().peak_flops * 1e3
+    print(f"  step {step_ms:.1f} ms (median of {TRAIN_TIMED}), "
+          f"{tokens / step_ms * 1e3:.1f} tokens/s; bound {bound_ms:.1f} ms "
+          f"(model_flops {flops:.4g} at {HW().peak_flops / 1e12:g} TFLOP/s "
+          f"bf16), mfu {bound_ms / step_ms:.4f}; peak memory "
+          f"{peak / 1e9:.2f} GB (max_memory_allocated)")
+    prof = train_profile(run, next_batch(run), torch)
+    opt_ms = optimizer_ms(run, torch)
+    print(f"  adamw_update alone: {opt_ms:.2f} ms a step (plain torch, "
+          f"{len(run.opt['m'])} tensors)")
+    out = dict(arch=cfg.name, layers=cfg.n_layers, parameters=n_param,
+               n_micro=run.n_micro, losses=losses,
+               first_batch_loss_after=again, step_ms=step_ms,
+               step_ms_all=[t * 1e3 for t in times],
+               tokens_per_s=tokens / step_ms * 1e3, bound_ms=bound_ms,
+               model_flops=flops, mfu=bound_ms / step_ms, peak_bytes=peak,
+               profiled=prof, optimizer_ms=opt_ms)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def within(got, want, atol, rtol) -> float:
+    """max |got - want| / (atol + rtol |want|): 1 or less holds."""
+    g, w = got.double(), want.double()
+    if g.numel() == 0:
+        return 0.0
+    return float(((g - w).abs() / (atol + rtol * w.abs())).max())
+
+
+def train_family_step(arch, seed, device):
+    """Phase 16 part 2: one f32 train step of ``arch``'s smoke config on
+    the card and on the CPU from the same weights and batch: loss,
+    gradients and grad_norm at ``TRAIN_TOL``, the updated weights where the
+    gradient is above its noise; gradients and grad_norm scaled by 1.01
+    must be refused.  Returns the worst ratios to the bounds."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.transformer import init_params, new_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.step import loss_fn, make_train_step
+
+    cfg = smoke_config(arch).scaled(dtype="float32")
+    cpu = torch.device("cpu")
+    on_cpu = init_params(cfg, torch.Generator().manual_seed(seed),
+                         device=cpu)
+    on_card = new_model(cfg, device=device)
+    with torch.no_grad():
+        for p, w in zip(on_card.parameters(), on_cpu.parameters()):
+            p.copy_(w)
+    b = TokenPipeline(vocab_size=cfg.vocab, seq_len=16,
+                      global_batch=4).next_batch()
+    batch = {k: torch.from_numpy(b[k]).reshape(2, 2, 16)
+             for k in ("tokens", "labels")}
+    if cfg.family == "encdec":
+        batch["enc_inputs"] = torch.from_numpy(np.random.default_rng(
+            seed).normal(size=(2, 2, cfg.enc_seq, cfg.d_model)).astype(
+            np.float32))
+    out = {}
+    for where, model in (("cpu", on_cpu), ("card", on_card)):
+        model.trainable_()
+        x = {k: v.to(model.embed.device) for k, v in batch.items()}
+        enc = x.get("enc_inputs")
+        loss = loss_fn(model, x["tokens"].reshape(4, 16),
+                       x["labels"].reshape(4, 16), cfg,
+                       enc_inputs=None if enc is None else enc.reshape(
+                           4, *enc.shape[2:]))
+        grads = [g.cpu() for g in torch.autograd.grad(
+            loss, list(model.parameters()))]
+        ocfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=40)
+        opt = adamw_init(model, ocfg)
+        _, _, m = make_train_step(cfg, ocfg, n_micro=2,
+                                  has_enc=enc is not None)(model, opt, x)
+        out[where] = dict(loss=loss.detach().cpu(), grads=grads,
+                        step_loss=m["loss"].cpu(),
+                        grad_norm=m["grad_norm"].cpu(),
+                        weights=[p.detach().cpu() for p in model.parameters()])
+    got, want = out["card"], out["cpu"]
+
+    def grad_ratio(scale):
+        return max(within(g * scale / w.abs().max().clamp_min(1e-30),
+                          w / w.abs().max().clamp_min(1e-30), *TRAIN_TOL)
+                   for g, w in zip(got["grads"], want["grads"]))
+
+    ratios = {k: within(got[k], want[k], *TRAIN_TOL)
+              for k in ("loss", "step_loss", "grad_norm")}
+    ratios["grads"] = grad_ratio(1.0)
+    left = total = 0
+    worst = 0.0
+    for g, w, gw in zip(got["weights"], want["weights"], want["grads"]):
+        a = gw.abs()
+        keep = (a == 0) | (a > TRAIN_MASK * a.max())
+        worst = max(worst, within(g[keep], w[keep], *TRAIN_TOL))
+        left, total = left + int((~keep).sum()), total + keep.numel()
+    ratios["weights"] = worst
+    controls = {"grads x 1.01": grad_ratio(1.01),
+                "grad_norm x 1.01": within(got["grad_norm"] * 1.01,
+                                           want["grad_norm"], *TRAIN_TOL)}
+    print(f"  {arch} ({cfg.family}), f32 smoke config, card vs CPU (ratio "
+          "to the bound, <= 1 holds): " + ", ".join(
+              f"{k} {v:.3g}" for k, v in ratios.items())
+          + f"; {left} of {total} weights left out (|g| at its noise); "
+          "controls " + ", ".join(f"{k} {v:.3g}" for k, v in controls.items()))
+    bad = [k for k, v in ratios.items() if not v <= 1]
+    bad += [f"control {k} not refused" for k, v in controls.items()
+            if not v > 1]
+    if left > TRAIN_LEFT_OUT * total:
+        bad.append(f"{left} of {total} weights left out")
+    if bad:
+        raise AssertionError(f"{arch}: train step card vs CPU: {bad}")
+    return dict(ratios=ratios, controls=controls, left_out=left)
+
+
+def train_resume(seed) -> int:
+    """``--train-resume`` (a child of phase 16, with
+    ``CUBLAS_WORKSPACE_CONFIG`` set): deterministic algorithms on;
+    internlm2-1.8b at full width and ``RESUME_LAYERS`` layers, 4 steps
+    straight against 2 steps, a save, a restore into a model initialised
+    from another seed and 2 more steps.  Weights, m, v, step and the data
+    cursor must be bit-equal.  Prints one JSON line; exits 1 if anything
+    differs."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import next_batch
+    from repro_torch.train.checkpoint import Checkpointer
+
+    torch.use_deterministic_algorithms(True)
+    device = torch.device("cuda")
+    cfg = get_config(TRAIN_ARCH).scaled(n_layers=RESUME_LAYERS)
+
+    def steps(run, n):
+        for _ in range(n):
+            run.step(run.model, run.opt, next_batch(run))
+
+    def tensors(run):
+        return ([p for _, p in run.model.named_parameters()]
+                + list(run.opt["m"].values()) + list(run.opt["v"].values())
+                + [run.opt["step"]])
+
+    straight = train_setup(cfg, device, seed, steps=4)
+    steps(straight, 4)
+    first = train_setup(cfg, device, seed, steps=4)
+    steps(first, 2)
+    d = tempfile.mkdtemp(prefix="acorn_train_resume_")
+    try:
+        ck = Checkpointer(d, keep=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(2, first.model, first.opt,
+                extra={"data": first.pipe.state_dict()})
+        copy_s = time.perf_counter() - t0
+        ck.wait()
+        save_s = time.perf_counter() - t0
+        del first
+        gc.collect()
+        torch.cuda.empty_cache()
+        nbytes = sum(os.path.getsize(os.path.join(r, f))
+                     for r, _, fs in os.walk(d) for f in fs)
+        resumed = train_setup(cfg, device, seed + 1, steps=4)
+        ptrs = [t.data_ptr() for t in tensors(resumed)]
+        t0 = time.perf_counter()
+        s0, _, _, extra = ck.restore(resumed.model, resumed.opt)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        resumed.pipe.load_state_dict(extra["data"])
+    finally:
+        shutil.rmtree(d)
+    steps(resumed, 2)
+    differ = sum(not torch.equal(a, b)
+                 for a, b in zip(tensors(resumed), tensors(straight)))
+    result = dict(
+        layers=cfg.n_layers,
+        parameters=sum(p.numel() for p in resumed.model.parameters()),
+        restored_step=s0, tensors=len(ptrs), tensors_differing=differ,
+        data_ptr_moved=[t.data_ptr() for t in tensors(resumed)] != ptrs,
+        cursor=resumed.pipe.cursor, cursor_straight=straight.pipe.cursor,
+        save_copy_s=copy_s, save_s=save_s, restore_s=restore_s,
+        checkpoint_bytes=nbytes, temp_dir_removed=not os.path.exists(d))
+    print(json.dumps({"train_resume": result}))
+    return int(differ != 0 or result["data_ptr_moved"]
+               or result["cursor"] != result["cursor_straight"]
+               or not result["temp_dir_removed"])
+
+
+def train_phase(seed, device):
+    """Phase 16: the training stack on the card (see the module's
+    docstring); returns its numbers for the ``paths`` line."""
+    import os
+
+    t0 = time.perf_counter()
+    out = {"full_width": train_full_width(seed, device)}
+    stamp("full-width steps")
+    out["card_vs_cpu"] = {arch: train_family_step(arch, seed, device)
+                          for arch in TRAIN_FAMILIES}
+    stamp("each family's f32 step held to the CPU")
+    env = dict(os.environ, **RESUME_ENV, PYTHONPATH=str(SRC))
+    with child([sys.executable, str(Path(__file__).resolve()),
+                "--train-resume", "--seed", str(seed)], timeout=400,
+               env=env) as get:
+        rc, res = get()
+    text = res if rc is None else res[0] + res[1]
+    lines = [json.loads(x) for x in text.splitlines()
+             if x.startswith('{"train_resume"')]
+    if rc != 0 or not lines:
+        raise AssertionError(f"the resume child exited {rc}:\n{text[-3000:]}")
+    r = out["resume"] = lines[-1]["train_resume"]
+    print(f"  resume ({r['layers']} layers, {r['parameters']:,} parameters, "
+          f"deterministic algorithms): {r['tensors']} tensors bit-equal to "
+          f"the straight run, cursor {r['cursor']}; save {r['save_s']:.2f} s "
+          f"(host copy {r['save_copy_s']:.2f} s), restore "
+          f"{r['restore_s']:.2f} s, {r['checkpoint_bytes']:,} bytes; the "
+          "temporary directory removed")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 16 took {out['seconds']:.1f} s")
+    return out
+
+
 def acorn_and_dense(seed, prof, device, libs, main_path, path_launches,
                     torch) -> tuple:
     """Phases 2-14: returns the ``paths`` JSON object (``main`` adds phase
@@ -3716,6 +4106,11 @@ def main(argv=None) -> int:
     ap.add_argument("--families", action="store_true",
                     help="only the build, decode_attn at the families' "
                          "shapes (phase 4's part) and phase 15")
+    ap.add_argument("--train", action="store_true",
+                    help="only the build and phase 16 (the training stack)")
+    ap.add_argument("--train-resume", action="store_true",
+                    help="only phase 16's resume check (phase 16 runs this "
+                         "as a child with deterministic algorithms)")
     args = ap.parse_args(argv)
     import torch
 
@@ -3734,6 +4129,8 @@ def main(argv=None) -> int:
         return int(any(bad for _, bad in found.values()))
     if args.capture_failure:
         return capture_failure(args.seed)
+    if args.train_resume:
+        return train_resume(args.seed)
     from repro_torch.core.plane import PlaneProfile
 
     t_start = time.perf_counter()
@@ -3756,29 +4153,42 @@ def main(argv=None) -> int:
                 raise AssertionError(f"the {name} path never launched {k}")
         return result
 
+    fam_attn = {}
     if args.families:
         phase("4 (part) decode_attn at the families' shapes")
         family_attn_phase(torch.Generator(device=device).manual_seed(11),
                           device)
+    if args.families or args.train:
         paths, shapes, t, lm_dtype = ({"launches": path_launches}, {},
                                       None, None)
     else:
         paths, shapes, t, lm_dtype = acorn_and_dense(
             args.seed, prof, device, libs, main_path, path_launches, torch)
-    phase("15 main path: the moe, hybrid, rwkv and encdec families at full "
-          "width through launch/serve.py; the hybrid's ring wrapped")
-    families = main_path("families", lambda: families_phase(args.seed, device),
-                         ["decode_attn"])
-    fam_attn = family_attn_timing(args.seed, torch)
-    stamp("family attention shapes timed")
-    if args.families:
+    if not args.train:
+        phase("15 main path: the moe, hybrid, rwkv and encdec families at "
+              "full width through launch/serve.py; the hybrid's ring "
+              "wrapped")
+        paths["families"] = main_path(
+            "families", lambda: families_phase(args.seed, device),
+            ["decode_attn"])
+        fam_attn = family_attn_timing(args.seed, torch)
+        stamp("family attention shapes timed")
+    if not args.families:
+        phase(f"16 main path: training {TRAIN_ARCH} at full width through "
+              "launch/train.py; each family's f32 step against the CPU; a "
+              "deterministic resume")
+        paths["train"] = main_path(
+            "train", lambda: train_phase(args.seed, device), [])
+        if any(path_launches["train"].values()):
+            raise AssertionError("the training path launched a kernel: "
+                                 f"{path_launches['train']}")
+    if args.families or args.train:
         kernel_resources(libs)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    paths["families"] = families
     print(json.dumps({"paths": paths, "decode_attn_shapes": {
         k: {x: a[x] for x in ("ms", "plain_ms", "bound_ms", "library_ms",
                               "max_abs_err")}

@@ -1,6 +1,8 @@
 """Dataset substrate: seeded synthetic stand-ins for the paper's datasets
-(``synth``, copied from ``repro.data.synth``).  The LM token pipeline of the
-JAX package waits for the LM slice."""
+(``synth``, copied from ``repro.data.synth``) and the deterministic,
+resumable LM token pipeline of the training loop (``tokens``, copied from
+``repro.data.tokens``)."""
 from repro_torch.data.synth import DATASETS, load_dataset, make_classification
+from repro_torch.data.tokens import TokenPipeline
 
-__all__ = ["DATASETS", "load_dataset", "make_classification"]
+__all__ = ["DATASETS", "load_dataset", "make_classification", "TokenPipeline"]

@@ -23,7 +23,7 @@ reads it): the local attention's ring buffer lives in the caller's cache,
 (a softmax over all ``-1e30``), the port returns zeros, as the TPU kernel
 does; the decode step always has ``kv_len >= 1``.  ``mxu_native`` (bf16
 operands into the matmuls) is not ported: its one user is the dry run's
-overrides, which come with the training slice.
+overrides, which come with the dry run (Queue 1 item 9c).
 """
 from __future__ import annotations
 

@@ -20,8 +20,16 @@ JAX stacks a family's layers on a leading axis, the port holds a
 ``ModuleList`` of blocks, and the layer loop that JAX scans is a Python
 loop.  Every module reads its weights by ``lp["name"]`` as well as by
 attribute, so the family functions (``moe``, ``rglru``, ``rwkv``) take a
-block or a dict of tensors alike.  Serving only: every parameter has
-``requires_grad=False`` (the train step is a later slice).
+block or a dict of tensors alike.  The weights are made with
+``requires_grad=False`` for serving; ``LM.trainable_()`` turns it on for
+the train step (``repro_torch.train.step``), and ``init_`` and ``load_``
+write them under ``no_grad`` either way.  ``forward(..., remat=True)`` runs
+each layer (superblock, tail layer, encoder layer) under
+``torch.utils.checkpoint``, as the reference's ``_scan`` wraps each
+scanned body in ``jax.checkpoint`` (:259-265): backward recomputes one
+layer at a time.  ``LM.tree()`` gives the weights back as the JAX package's
+tree (``tree_of``: layers stacked on a leading axis), the inverse of
+``load_``.
 
 Differences from JAX, each in place of a copy:
 
@@ -40,6 +48,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.attention import decode_attention, gqa_attention
@@ -69,6 +78,9 @@ __all__ = [
     "decode_step",
     "init_decode_state",
     "state_items",
+    "leaf_of",
+    "tree_of",
+    "tree_path",
     "DEFAULT_DEVICE",
 ]
 
@@ -161,6 +173,51 @@ _SCALE = {"embed": 0.02, "enc_pos": 0.02, "conv_w": 0.3, "w_lora_b": 0.01,
           "u": 0.5}
 
 
+def tree_path(name: str) -> tuple[tuple[str, ...], int | None]:
+    """A parameter's name in the port (``layers.3.wq``, ``super.0.mlp1.wg``)
+    -> (its leaf's path in the JAX package's tree, ``("layers", "wq")``;
+    its index on that leaf's stacked layer axis, or None)."""
+    path, layer = [], None
+    for part in name.split("."):
+        if part.isdigit():
+            layer = int(part)
+        else:
+            path.append(part)
+    return tuple(path), layer
+
+
+def tree_of(named) -> dict:
+    """(name, tensor) pairs of the port's parameters (or of tensors keyed
+    like them: the optimizer's moments) -> the JAX package's nested dict of
+    numpy arrays, each family's layers stacked on a leading axis as
+    ``init_params`` lays them out.  Every array is a copy on the host;
+    bfloat16 goes out as float32, losslessly (numpy has no bfloat16)."""
+    leaves: dict[tuple, dict] = {}
+    for name, t in named:
+        path, layer = tree_path(name)
+        a = t.detach().to("cpu", copy=True)
+        leaves.setdefault(path, {})[layer] = (
+            a.float() if a.dtype == torch.bfloat16 else a).numpy()
+    tree: dict = {}
+    for path, by_layer in leaves.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = (by_layer[None] if None in by_layer else
+                          np.stack([by_layer[i] for i in sorted(by_layer)]))
+    return tree
+
+
+def leaf_of(tree: dict, name: str) -> np.ndarray:
+    """The JAX tree's array for the port's parameter ``name`` (its layer's
+    slice of a stacked leaf)."""
+    path, layer = tree_path(name)
+    node = tree
+    for k in path:
+        node = node[k]
+    return np.asarray(node if layer is None else node[layer])
+
+
 class LM(Params):
     """The weights of one LM, allocated (not initialised) on ``device``;
     fill them with ``init_`` or ``load_``.  Each family's subclass adds its
@@ -214,17 +271,23 @@ class LM(Params):
         stacked layers ``[L, ...]``) into the weights in place.  bfloat16
         arrays (``ml_dtypes``) cross as float32, losslessly."""
         for name, p in self.named_parameters():
-            node, layer = tree, None
-            for part in name.split("."):
-                if part.isdigit():
-                    layer = int(part)
-                else:
-                    node = node[part]
-            a = np.asarray(node if layer is None else node[layer])
+            a = leaf_of(tree, name)
             if a.shape != tuple(p.shape):
                 raise ValueError(f"{name}: array {a.shape}, weight "
                                  f"{tuple(p.shape)}")
             p.copy_(torch.from_numpy(a.astype(np.float32)))
+        return self
+
+    def tree(self) -> dict:
+        """The weights as the JAX package's parameter tree (numpy, on the
+        host; bfloat16 as float32): the inverse of ``load_``."""
+        return tree_of(self.named_parameters())
+
+    def trainable_(self, flag: bool = True) -> "LM":
+        """Turn ``requires_grad`` on (the train step) or off (serving) for
+        every weight, in place."""
+        for p in self.parameters():
+            p.requires_grad_(flag)
         return self
 
 
@@ -398,54 +461,78 @@ def _cross(h, lp, cfg: ArchConfig, k, v, attend):
     return attend(q, k, v).reshape(B, S, cfg.n_heads * cfg.hd) @ lp["xo"]
 
 
-def _encode(params: LM, enc_inputs: torch.Tensor, cfg: ArchConfig):
+def _layer(fn, x, remat: bool):
+    """``fn(x)``: one layer's body, under ``torch.utils.checkpoint`` when
+    ``remat`` is on and autograd records (its activations recomputed in
+    backward, the reference's ``jax.checkpoint`` of a scanned body)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, x, use_reentrant=False)
+    return fn(x)
+
+
+def _encode(params: LM, enc_inputs: torch.Tensor, cfg: ArchConfig, *,
+            remat: bool = False):
     """Whisper's encoder over stub frame embeddings (the frontend is a
     stub): bidirectional attention, no RoPE."""
-    e = enc_inputs + params["enc_pos"][None]
-    for lp in params["enc_layers"]:
+    def enc_layer(e, lp):
         e = e + _attn_block(rms_norm(e, lp["ln1"]), lp, cfg, None, None,
                             causal=False)
-        e = e + _mlp_block(rms_norm(e, lp["ln2"]), lp)
+        return e + _mlp_block(rms_norm(e, lp["ln2"]), lp)
+
+    e = enc_inputs + params["enc_pos"][None]
+    for lp in params["enc_layers"]:
+        e = _layer(lambda h, lp=lp: enc_layer(h, lp), e, remat)
     return rms_norm(e, params["ln_enc"])
 
 
+def _decoder_layer(x, lp, cfg: ArchConfig, sin, cos, q_chunk, e):
+    """One layer of the dense, moe and encdec families (``e`` the encoder's
+    output for the encdec family's cross attention)."""
+    B, S, _ = x.shape
+    h = x + _attn_block(rms_norm(x, lp["ln1"]), lp, cfg, sin, cos,
+                        q_chunk=q_chunk)
+    if cfg.family == "encdec":
+        Se = e.shape[1]
+        k = (e @ lp["xk"]).reshape(B, Se, cfg.n_kv, cfg.hd)
+        v = (e @ lp["xv"]).reshape(B, Se, cfg.n_kv, cfg.hd)
+        h = h + _cross(h, lp, cfg, k, v, lambda q, k, v:
+                       gqa_attention(q, k, v, causal=False))
+    if cfg.family == "moe":
+        return h + _moe(rms_norm(h, lp["ln2"]), lp, cfg)
+    return h + _mlp_block(rms_norm(h, lp["ln2"]), lp)
+
+
 def forward(params: LM, tokens: torch.Tensor, cfg: ArchConfig, *,
-            enc_inputs: torch.Tensor | None = None,
-            q_chunk: int = 0) -> torch.Tensor:
+            enc_inputs: torch.Tensor | None = None, q_chunk: int = 0,
+            remat: bool = True) -> torch.Tensor:
     """Logits [B, S, V] of tokens int [B, S]; the encdec family needs
-    ``enc_inputs`` [B, enc_seq, D] (the stub frontend's output)."""
+    ``enc_inputs`` [B, enc_seq, D] (the stub frontend's output).  With
+    ``remat`` each layer's activations are recomputed in backward instead
+    of kept; the logits are the same either way."""
     B, S = tokens.shape
     x = params.embed[tokens.long()]
     sin, cos = rope(torch.arange(S, device=x.device), cfg.hd, cfg.rope_theta)
     sin, cos = sin[None], cos[None]
 
     if cfg.family in ("dense", "moe", "encdec"):
+        e = None
         if cfg.family == "encdec":
             if enc_inputs is None:
                 raise ValueError("encdec needs enc_inputs (frontend stub "
                                  "output)")
-            e = _encode(params, enc_inputs, cfg)
+            e = _encode(params, enc_inputs, cfg, remat=remat)
         for lp in params.layers:
-            h = x + _attn_block(rms_norm(x, lp["ln1"]), lp, cfg, sin, cos,
-                                q_chunk=q_chunk)
-            if cfg.family == "encdec":
-                Se = e.shape[1]
-                k = (e @ lp["xk"]).reshape(B, Se, cfg.n_kv, cfg.hd)
-                v = (e @ lp["xv"]).reshape(B, Se, cfg.n_kv, cfg.hd)
-                h = h + _cross(h, lp, cfg, k, v, lambda q, k, v:
-                               gqa_attention(q, k, v, causal=False))
-            if cfg.family == "moe":
-                x = h + _moe(rms_norm(h, lp["ln2"]), lp, cfg)
-            else:
-                x = h + _mlp_block(rms_norm(h, lp["ln2"]), lp)
+            x = _layer(lambda h, lp=lp: _decoder_layer(
+                h, lp, cfg, sin, cos, q_chunk, e), x, remat)
     elif cfg.family == "hybrid":
         for lp in params.super:
-            x = _hybrid_super(x, lp, cfg, sin, cos, q_chunk)
+            x = _layer(lambda h, lp=lp: _hybrid_super(
+                h, lp, cfg, sin, cos, q_chunk), x, remat)
         for lp in getattr(params, "tail", ()):
-            x = _hybrid_tail(x, lp)
+            x = _layer(lambda h, lp=lp: _hybrid_tail(h, lp), x, remat)
     elif cfg.family == "rwkv":
         for lp in params.layers:
-            x = _rwkv_layer(x, lp, cfg)
+            x = _layer(lambda h, lp=lp: _rwkv_layer(h, lp, cfg), x, remat)
     else:
         raise ValueError(cfg.family)
     return rms_norm(x, params.ln_f) @ params.head

@@ -5,13 +5,15 @@ Each runs in this process as ``__main__`` with ``--device cpu`` (the
 examples default to the card); an example whose own assert fails raises
 here.  Its printed invariants are checked beside: the answers it asserts
 equal the trained model, the captured-graph counts, bit-identical async
-responses, the lanes' answers, the LM's in-place weight swap.
+responses, the lanes' answers, the LM's in-place weight swap, the LM's
+loss falling across a checkpoint and restart.
 """
 import pathlib
 import runpy
 import sys
 
 import pytest
+from torch_train_lane import one_torch_thread  # noqa: F401 (autouse)
 
 EXAMPLES = pathlib.Path(__file__).resolve().parent.parent / "examples" / \
     "torch_port"
@@ -31,7 +33,12 @@ SAYS = {
                               "sharded over 4 port lanes (bucket 512) — "
                               "bit-identical answers"],
     "serve_lm": ["decoded 4x32 tokens", "weight swap OK"],
+    "train_lm": ["--- simulated preemption at step 20;",
+                 "across a restart (OK) on cpu"],
 }
+# arguments beside --device cpu: train_lm's 300 steps take ~40 s of eight
+# CPU cores, its 40 (a preemption at step 20) ~8 s of one
+ARGS = {"train_lm": ["--steps", "40"]}
 
 
 def test_every_example_is_covered():
@@ -41,7 +48,8 @@ def test_every_example_is_covered():
 @pytest.mark.parametrize("name", sorted(SAYS))
 def test_example_runs_on_the_cpu(name, monkeypatch, capsys):
     path = EXAMPLES / f"{name}.py"
-    monkeypatch.setattr(sys, "argv", [str(path), "--device", "cpu"])
+    monkeypatch.setattr(sys, "argv", [str(path), "--device", "cpu",
+                                      *ARGS.get(name, [])])
     runpy.run_path(str(path), run_name="__main__")
     out = capsys.readouterr().out
     for line in SAYS[name]:

@@ -1121,3 +1121,144 @@ def test_lanes_on_distinct_cards(cuda, satdap_zoo):
         for f in ("rslt", "codes", "svm_acc"):
             assert torch.equal(getattr(out, f), getattr(want, f)), f
     assert rt.cache_size() == 0
+
+
+# ------------------------------------------------------- the training stack
+TRAIN_FAMILIES = ["internlm2-1.8b", "qwen3-moe-235b-a22b", "recurrentgemma-2b",
+                  "rwkv6-7b", "whisper-tiny"]
+
+
+def _train_step_on(model, cfg, batch):
+    """Gradients of ``loss_fn`` over the whole batch, then one train step
+    (n_micro 2); everything returned on the CPU."""
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.step import loss_fn, make_train_step
+
+    dev = model.embed.device
+    x = {k: v.to(dev) for k, v in batch.items()}
+    enc = x.get("enc_inputs")
+    model.trainable_()
+    loss = loss_fn(model, x["tokens"].reshape(4, -1),
+                   x["labels"].reshape(4, -1), cfg,
+                   enc_inputs=None if enc is None else enc.reshape(
+                       4, *enc.shape[2:]))
+    grads = [g.cpu() for g in torch.autograd.grad(loss,
+                                                  list(model.parameters()))]
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=40)
+    _, _, m = make_train_step(cfg, ocfg, n_micro=2, has_enc=enc is not None)(
+        model, adamw_init(model, ocfg), x)
+    return (float(loss.detach()), grads, float(m["grad_norm"]),
+            [p.detach().cpu() for p in model.parameters()])
+
+
+@pytest.mark.parametrize("arch", TRAIN_FAMILIES)
+def test_train_step_on_the_card_equals_the_cpu(cuda, arch):
+    """One f32 train step of the family's smoke config on the card against
+    the same step on the CPU: loss, gradients (each scaled by its largest
+    |g|) and grad_norm at 1e-4, the updated weights at 1e-4 where |g| is
+    above 1e-3 x its leaf's largest or 0; no kernel launched."""
+    from repro_torch.data import TokenPipeline
+
+    cfg = smoke_config(arch).scaled(dtype="float32")
+    cpu = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                  device="cpu")
+    card = transformer.new_model(cfg, device=cuda)
+    with torch.no_grad():
+        for p, w in zip(card.parameters(), cpu.parameters()):
+            p.copy_(w)
+    b = TokenPipeline(vocab_size=cfg.vocab, seq_len=16,
+                      global_batch=4).next_batch()
+    batch = {k: torch.from_numpy(b[k]).reshape(2, 2, 16)
+             for k in ("tokens", "labels")}
+    if cfg.family == "encdec":
+        batch["enc_inputs"] = torch.from_numpy(np.random.default_rng(
+            1).normal(size=(2, 2, cfg.enc_seq, cfg.d_model)).astype(
+            np.float32))
+    want = _train_step_on(cpu, cfg, batch)
+    before = {k: f.launches for k, f in _KERNELS.items()}
+    got = _train_step_on(card, cfg, batch)
+    assert {k: f.launches for k, f in _KERNELS.items()} == before
+    np.testing.assert_allclose(got[0], want[0], atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(got[2], want[2], atol=1e-4, rtol=1e-4)
+    left = total = 0
+    for g, w, p, q in zip(got[1], want[1], got[3], want[3]):
+        s = float(w.abs().max()) or 1.0
+        torch.testing.assert_close(g / s, w / s, atol=1e-4, rtol=1e-4)
+        keep = (w == 0) | (w.abs() > 1e-3 * w.abs().max())
+        torch.testing.assert_close(p[keep], q[keep], atol=1e-4, rtol=1e-4)
+        left, total = left + int((~keep).sum()), total + keep.numel()
+    assert left <= 0.05 * total
+
+
+_KERNELS = {"classify_fused": classify_fused, "tree_walk": tree_walk,
+            "tcam_match": tcam_match, "forest_vote": forest_vote,
+            "svm_lookup": svm_lookup, "decode_attn": decode_attn}
+
+_RESUME_CHILD = """
+import json, shutil, sys, tempfile
+import torch
+sys.path.insert(0, {src!r})
+from repro_torch.configs import get_config
+from repro_torch.launch.train import next_batch, opt_config, setup
+from repro_torch.train.checkpoint import Checkpointer
+
+torch.use_deterministic_algorithms(True)
+cfg = get_config("internlm2-1.8b").scaled(n_layers=1, d_model=256,
+                                          n_heads=4, n_kv=2, d_ff=512)
+ocfg = opt_config(cfg, smoke=False, steps=4)
+
+def run(seed):
+    return setup(cfg, seq=256, global_batch=8, n_micro=2, ocfg=ocfg,
+                 device="cuda", seed=seed)
+
+def steps(r, n):
+    for _ in range(n):
+        r.step(r.model, r.opt, next_batch(r))
+
+def tensors(r):
+    return ([p for p in r.model.parameters()] + list(r.opt["m"].values())
+            + list(r.opt["v"].values()) + [r.opt["step"]])
+
+a = run(0)
+steps(a, 4)
+b = run(0)
+steps(b, 2)
+d = tempfile.mkdtemp()
+try:
+    ck = Checkpointer(d, keep=1)
+    ck.save(2, b.model, b.opt, extra={{"data": b.pipe.state_dict()}})
+    ck.wait()
+    c = run(1)
+    ptrs = [t.data_ptr() for t in tensors(c)]
+    ck.restore(c.model, c.opt)
+    c.pipe.load_state_dict(b.pipe.state_dict())
+finally:
+    shutil.rmtree(d)
+steps(c, 2)
+print(json.dumps({{
+    "differ": sum(not torch.equal(x, y) for x, y in zip(tensors(a),
+                                                         tensors(c))),
+    "moved": [t.data_ptr() for t in tensors(c)] != ptrs,
+    "cursors": [a.pipe.cursor, c.pipe.cursor]}}))
+"""
+
+
+def test_train_resume_is_bit_exact_in_a_deterministic_child(cuda):
+    """In a child with deterministic algorithms (``CUBLAS_WORKSPACE_CONFIG``
+    set): 4 steps straight, against 2, a checkpoint restored into weights
+    from another seed, and 2 more; every weight and moment bit-equal, the
+    step and the data cursor too, no ``data_ptr`` moved."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    src = str(pathlib.Path(__file__).resolve().parent.parent / "src")
+    res = subprocess.run(
+        [sys.executable, "-c", _RESUME_CHILD.format(src=src)],
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out == {"differ": 0, "moved": False, "cursors": [4, 4]}

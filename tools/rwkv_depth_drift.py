@@ -1,9 +1,13 @@
 #!/usr/bin/env python3
 """How far RWKV-6's decode drifts from its own forward with depth, in f32,
-at rwkv6-7b's widths, on the CPU: the JAX package's or the port's.
+at rwkv6-7b's widths: the JAX package's (on the CPU) or the port's (on the
+card, or on the CPU with ``--device cpu``).
 
     PYTHONPATH=src python3 tools/rwkv_depth_drift.py --package jax
-    PYTHONPATH=src python3 tools/rwkv_depth_drift.py --package torch
+    PYTHONPATH=src python3 tools/rwkv_depth_drift.py --package torch \
+        --device cpu
+    PYTHONPATH=src python3 tools/rwkv_depth_drift.py --package torch \
+        --depths 1 2 3 4 5 6 7 8 9 10 11 12
 
 For each depth of ``--depths``, rwkv6-7b's config cut to that many layers
 (d_model 4096, 64 heads of 64, d_ff 14336, vocab 65536 as published), in
@@ -14,7 +18,9 @@ from a zero state.  Prints a JSON line a depth: the largest |decode -
 forward| over the logits, its rms, and the largest |logit|.  Each package
 runs in its own process and imports only itself (``jax`` and ``repro``, or
 ``torch`` and ``repro_torch``).  A depth of L layers holds 2.1 + 0.88 L GB
-of f32 weights.
+of f32 weights.  The port draws its weights on the CPU's generator
+whatever ``--device`` is, so the card runs the CPU run's weights and
+tokens.
 """
 from __future__ import annotations
 
@@ -51,7 +57,7 @@ def jax_logits(d, toks, seed):
     return np.stack(dec, axis=1), np.asarray(fwd, np.float32)
 
 
-def torch_logits(d, toks, seed):
+def torch_logits(d, toks, seed, device):
     import torch
 
     from repro_torch.configs import get_config
@@ -62,17 +68,18 @@ def torch_logits(d, toks, seed):
         init_params,
     )
 
-    cpu = torch.device("cpu")
     cfg = get_config("rwkv6-7b").scaled(n_layers=d, dtype="float32")
-    params = init_params(cfg, torch.Generator().manual_seed(seed), device=cpu)
-    t = torch.from_numpy(toks)
-    fwd = forward(params, t, cfg)
-    state = init_decode_state(cfg, *toks.shape, device=cpu)
-    dec = []
-    for i in range(toks.shape[1]):
-        lg, state = decode_step(params, state, t[:, i:i + 1], i, cfg)
-        dec.append(lg[:, 0])
-    return torch.stack(dec, dim=1).numpy(), fwd.numpy()
+    params = init_params(cfg, torch.Generator().manual_seed(seed),
+                         device=device)
+    t = torch.from_numpy(toks).to(device)
+    with torch.no_grad():
+        fwd = forward(params, t, cfg)
+        state = init_decode_state(cfg, *toks.shape, device=device)
+        dec = []
+        for i in range(toks.shape[1]):
+            lg, state = decode_step(params, state, t[:, i:i + 1], i, cfg)
+            dec.append(lg[:, 0])
+    return torch.stack(dec, dim=1).cpu().numpy(), fwd.cpu().numpy()
 
 
 def main(argv=None) -> int:
@@ -82,15 +89,24 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--seq", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="where the port runs (default cuda; JAX runs on "
+                         "the CPU)")
     args = ap.parse_args(argv)
-    run = jax_logits if args.package == "jax" else torch_logits
+    if args.package == "jax":
+        run, where = jax_logits, "cpu"
+    else:
+        def run(d, toks, seed):
+            return torch_logits(d, toks, seed, args.device)
+        where = args.device
     toks = np.random.default_rng(args.seed).integers(
         0, 65536, (args.batch, args.seq)).astype(np.int32)
     for d in args.depths:
         t0 = time.perf_counter()
         dec, fwd = run(d, toks, args.seed)
         err = np.abs(dec - fwd)
-        print(json.dumps({"package": args.package, "layers": d,
+        print(json.dumps({"package": args.package, "device": where,
+                          "layers": d,
                           "max_abs_err": float(err.max()),
                           "rms_err": float(np.sqrt((err ** 2).mean())),
                           "max_abs_logit": float(np.abs(fwd).max()),
