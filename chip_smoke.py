@@ -40,7 +40,14 @@ JAX package.  Phases, each fatal on failure:
              edges, bf16 and f32; then
              at the two further shapes on two streams at once (launches of
              both in flight together, each holding its own arrival
-             counters), every output within the full-width bound.
+             counters), every output within the full-width bound; last,
+             the ``mxu_native`` variant (P in bf16 for P.V, the
+             reference's ``attn_mxu_native``) against its plain version
+             within ``mxu_bound`` (one bf16 ulp + 2^-7 sum P|V|) at the
+             full width (the two wrong attentions refused), on its edges,
+             at the two further shapes and the families' shapes, each
+             output unlike the default kernel's; in f32 the flag changes
+             nothing, bit for bit.
 5. path    — a zoo at the paper's profile (``PlaneProfile(max_versions=4)``)
              built with the port's own models and translator: an 8-tree
              random forest and a deeper decision tree on the cicids-17
@@ -80,7 +87,8 @@ JAX package.  Phases, each fatal on failure:
              runtime.  The full-width decode step with the cache filled to
              ``kv_len`` 4096 at B 16: ms per step, tokens/s, ``decode_attn``
              per launch against its bound, plain version and
-             ``scaled_dot_product_attention``, and a profiler table; the
+             ``scaled_dot_product_attention`` (and the same for the
+             ``mxu_native`` variant), and a profiler table; the
              same for ``decode_attn`` at the two further shapes of phase 4;
              each kernel's gap to its bound, launch geometry, and every
              kernel's registers and shared memory; the card's
@@ -192,7 +200,25 @@ JAX package.  Phases, each fatal on failure:
              width and 2 layers: 4 steps straight against 2, a checkpoint
              saved and restored into other weights, and 2 more, bit-equal.
 
-Each main path (5, 6, 7, 8, 11, 12, 13, 15, 16) runs with every kernel's
+17. mxu    — internlm2-1.8b with ``attn_mxu_native`` through
+             ``launch.serve.serve`` at full width (B 16, 64 + 32 tokens, 2
+             tenants; 24 mxu_native ``decode_attn`` launches a step, counted
+             apart as ``decode_attn_mxu_native``), each tenant
+             teacher-forced: every launch held to the mxu_native plain
+             version at ``mxu_bound``, the logits to the mxu_native twin's
+             at phase 8's bound, the served tokens their argmax, the
+             default kernel's decode unlike it, a wrong attention refused;
+             the step at kv_len 4096 with and without the flag, 10 pairs
+             of windows in alternating order.
+             Then the dry run (``launch/dryrun.py``) over its 80 cells
+             (every one ``ok`` and fitting the card or ``skip`` as
+             ``applicable`` says), and device (0, 0) of the 16 x 16 mesh
+             held on this card for grok-1-314b ``train_4k`` and
+             qwen3-moe-235b-a22b ``decode_32k``: every shard allocated and
+             zeroed, the allocator's growth the dry run's
+             ``analytic_bytes_per_device`` within its rounding per tensor.
+
+Each main path (5, 6, 7, 8, 11, 12, 13, 15, 16, 17) runs with every kernel's
 launch count set to 0 just before it and read just after; a kernel of the
 path that never launched fails the run, and so does any launch on phase
 16's path.  A replayed graph adds the launches its capture
@@ -202,7 +228,8 @@ counted.  Output: a ``paths`` JSON line, a ``kernels`` JSON line (with
 two-stream check, against the sources beside the script;
 ``--capture-failure`` only phase 10's failing capture; ``--families``
 only the build, phase 4's family shapes and phase 15; ``--train`` only the
-build and phase 16 (``--train-resume``: its child).  Every bound comes
+build and phase 16 (``--train-resume``: its child); ``--mxu`` only the
+build, phase 4's mxu_native part and phase 17.  Every bound comes
 from ``repro_torch.analysis.roofline`` (``HW()``: the H100's peaks).
 """
 from __future__ import annotations
@@ -246,6 +273,13 @@ FLEET_SECONDS = 2.0              # arrivals scheduled in the kill run
 LOAD_SECONDS = 2.0               # arrivals scheduled per offered load
 CLIENTS = 64                     # closed-loop clients of phase 11
 LM_ARCH = "internlm2-1.8b"
+MXU = "decode_attn_mxu_native"   # decode_attn's variant with P in bf16
+# phase 17: the production mesh's device (0, 0) held on the card in two
+# 1-pod cells of the dry run; the caching allocator hands a tensor a block
+# of its bytes rounded up to 512, or past 1 MiB a whole block of up to 2 MiB
+MESH_CELLS = (("grok-1-314b", "train_4k"),
+              ("qwen3-moe-235b-a22b", "decode_32k"))
+ALLOC_ROUND = 2 ** 21
 LM_SERVE = dict(batch=16, prompt_len=64, gen=32, swaps=2)
 LM_CACHE = 4096                  # kv_len of the timed decode step
 # (atol, rtol): decode_attn vs its plain version.  On the sweep, the JAX
@@ -338,12 +372,20 @@ def kernels():
 
 
 def launches() -> dict:
-    return {k: f.launches for k, f in kernels().items()}
+    """Each wrapper's count, and ``MXU``: the launches of ``decode_attn``'s
+    mxu_native variant (counted in ``decode_attn`` too)."""
+    from repro_torch.kernels.decode_attn import decode_attn
+
+    return {**{k: f.launches for k, f in kernels().items()},
+            MXU: decode_attn.mxu_launches}
 
 
 def zero_launches() -> None:
+    from repro_torch.kernels.decode_attn import decode_attn
+
     for f in kernels().values():
         f.launches = 0
+    decode_attn.mxu_launches = 0
 
 
 # ----------------------------------------------------------------- phases
@@ -585,12 +627,13 @@ def attn_inputs(gen, B, Hq, Hkv, D, S, dtype, device):
     return q, k, v, kv_len
 
 
-def attn_controls(ins, want, tol):
-    """Two wrong attentions that the full-width bf16 bound must refuse: the
-    plain version's f32 softmax with its P.V sum accumulated in bf16 (each
-    row added in turn), and the plain version with each row's newest cached
-    position dropped (``kv_len - 1`` where ``kv_len > 1``).  Prints their
-    errors and whether the JAX package's bound would have passed them."""
+def attn_controls(ins, want, within):
+    """Two wrong attentions that a full-width bf16 bound (``within(got)``:
+    (max abs err, within the bound)) must refuse: the plain version's f32
+    softmax with its P.V sum accumulated in bf16 (each row added in turn),
+    and the plain version with each row's newest cached position dropped
+    (``kv_len - 1`` where ``kv_len > 1``).  Prints their errors and whether
+    the JAX package's bound would have passed them."""
     import torch
     from repro_torch.kernels.decode_attn import decode_attn_plain
 
@@ -612,7 +655,7 @@ def attn_controls(ins, want, tol):
             q, k, v, torch.where(kv_len > 1, kv_len - 1, kv_len)),
     }
     for what, got in wrong.items():
-        err, ok = close(got, want, *tol)
+        err, ok = within(got)
         jax_ok = close(got, want, *ATTN_TOL["bfloat16"])[1]
         print(f"  control, {what}: max abs err {err:.3g}: "
               f"{'PASSES' if ok else 'refused'}; the JAX package's bound "
@@ -633,6 +676,84 @@ def hold_attn(what, got, want, tol):
     if not ok or got.dtype != want.dtype:
         raise AssertionError(f"decode_attn != its plain version: {what}")
     return err
+
+
+def mxu_within(got, want, ins):
+    """(max abs err, within ``mxu_bound`` everywhere, the largest error
+    over its bound): the mxu_native variant's bound against another bf16-P
+    attention on ``ins``."""
+    import torch
+    from repro_torch.kernels.decode_attn import mxu_bound
+
+    err = (got.float() - want.float()).abs()
+    over = err / mxu_bound(*ins, want)
+    torch.cuda.synchronize()
+    return float(err.max()), bool((over <= 1).all()) and (
+        got.dtype == want.dtype), float(over.max())
+
+
+def mxu_attn_phase(gen, device):
+    """The mxu_native variant (P in bf16 for P.V, as the reference's
+    ``attn_mxu_native``) against its plain version within ``mxu_bound``:
+    at internlm2-1.8b's full width (B 16, S 4096; the two wrong attentions
+    refused), with a row per kv_len on internlm2's tile and span edges, at
+    ``ATTN_WIDE`` and at the families' shapes (``ATTN_FAMILIES``); every
+    output differs from the default kernel's on the same inputs (the flag
+    reaches the kernel), and f32 with the flag equals the default kernel
+    bit for bit.  Returns {shape: max abs err}."""
+    import torch
+    from repro_torch.kernels.decode_attn import (
+        decode_attn,
+        decode_attn_plain,
+        plan,
+    )
+
+    bf16 = torch.bfloat16
+    full = f"{LM_ARCH} heads, B 16, kv_len {LM_CACHE}"
+    shapes = {full: (16, 16, 8, 128, LM_CACHE), **ATTN_WIDE, **ATTN_FAMILIES}
+
+    def cases():
+        for what, shape in shapes.items():
+            yield what, attn_inputs(gen, *shape, bf16, device)
+            if what == full:   # a row per kv_len on the plan's edges
+                B, Hq, Hkv, D, S = shape
+                lens = edge_lengths(plan(11, Hq, Hkv, D, S, bf16), S)
+                p = plan(len(lens), Hq, Hkv, D, S, bf16)
+                lens = edge_lengths(p, S)
+                q, k, v, _ = attn_inputs(gen, len(lens), Hq, Hkv, D, S, bf16,
+                                         device)
+                yield (f"  edges: {p.n_split} spans of {p.split_len}, "
+                       f"kv_len {lens}", (q, k, v, torch.tensor(
+                           lens, dtype=torch.int32, device=device)))
+
+    errs = {}
+    for what, ins in cases():
+        got = decode_attn(*ins, mxu_native=True)
+        want = decode_attn_plain(*ins, mxu_native=True)
+        err, ok, over = mxu_within(got, want, ins)
+        share = float((got != decode_attn(*ins)).float().mean())
+        print(f"mxu_native {what}: max abs err {err:.3g}, {over:.3f} of "
+              "mxu_bound at most; "
+              f"{100 * share:.1f}% of the outputs differ from the default "
+              "kernel's")
+        if not ok:
+            raise AssertionError(f"decode_attn mxu_native != its plain "
+                                 f"version at {what}")
+        if share == 0:
+            raise AssertionError(f"decode_attn mxu_native gives the default "
+                                 f"kernel's output at {what}")
+        errs[what] = err
+        if what == full:
+            attn_controls(ins, want,
+                          lambda bad: mxu_within(bad, want, ins)[:2])
+        del ins, got, want
+    ins32 = attn_inputs(gen, 16, 16, 8, 128, LM_CACHE, torch.float32, device)
+    if not torch.equal(decode_attn(*ins32, mxu_native=True),
+                       decode_attn(*ins32)):
+        raise AssertionError("decode_attn mxu_native in f32 is not the "
+                             "default kernel")
+    print("mxu_native in f32 == the default kernel, bit for bit")
+    return errs
 
 
 def edge_lengths(p, S):
@@ -785,7 +906,7 @@ def attn_phase(seed, device):
                 raise AssertionError(f"decode_attn != its plain version at "
                                      f"{shape} {dtype}")
             if full and dtype == torch.bfloat16:
-                attn_controls(ins, want, tol)
+                attn_controls(ins, want, lambda got: close(got, want, *tol))
     for name, shape in ATTN_WIDE.items():
         for dtype in (torch.bfloat16, torch.float32):
             ins = attn_inputs(gen, *shape, dtype, device)
@@ -795,6 +916,7 @@ def attn_phase(seed, device):
             del ins
     edge_phase(gen, device)
     family_attn_phase(gen, device)
+    mxu_attn_phase(gen, device)
     q, k, v, _ = attn_inputs(gen, 3, 4, 2, 16, 40, torch.float32, device)
     kv_len = torch.tensor([0, 17, 0], dtype=torch.int32, device=device)
     got = decode_attn(q, k, v, kv_len)
@@ -1050,8 +1172,7 @@ def wrong_attention(fn):
     from repro_torch.kernels import ops
 
     real = ops.decode_attn
-    ops.decode_attn = lambda q, k, v, kv_len, *, mode=None: fn(q, k, v,
-                                                               kv_len)
+    ops.decode_attn = lambda q, k, v, kv_len, **_: fn(q, k, v, kv_len)
     try:
         yield
     finally:
@@ -1212,7 +1333,8 @@ def gc_text(gcp) -> str:
 
 def lm_timing(cfg, model, seed, torch, n_iter=50):
     """The full-width decode step with the cache filled to ``LM_CACHE`` at
-    B 16, and ``decode_attn`` on one layer's cache."""
+    B 16, and ``decode_attn`` and its mxu_native variant on one layer's
+    cache."""
     from repro_torch.models.transformer import decode_step, init_decode_state
 
     device = model.embed.device
@@ -1236,6 +1358,10 @@ def lm_timing(cfg, model, seed, torch, n_iter=50):
     ins = (q, state["k"][0], state["v"][0], kv_len)
     cyc = sleep_cycles_per_ms(torch)
     a = attn_timing(f"{LM_ARCH} B {B} kv_len {T}", ins, torch, cyc, n_iter)
+    am = attn_timing(f"{LM_ARCH} B {B} kv_len {T}", ins, torch, cyc, n_iter,
+                     mxu=True)
+    print(f"  mxu_native / default kernel: {am['ms']:.5f} / {a['ms']:.5f} ms "
+          f"= {am['ms'] / a['ms']:.3f}")
     from repro_torch.analysis import model_flops
 
     weights = sum(p.numel() * p.element_size() for p in model.parameters())
@@ -1255,14 +1381,15 @@ def lm_timing(cfg, model, seed, torch, n_iter=50):
           f"{100 * busy_us / (step_s * 1e6):.1f}% of the unprofiled step")
     del state
     torch.cuda.empty_cache()
-    return a, B / step_s
+    return a, am, B / step_s
 
 
-def attn_timing(name, ins, torch, cyc, n_iter=50):
-    """``decode_attn`` on ``ins``: the kernel (two timed runs), its plain
-    version and ``scaled_dot_product_attention`` by CUDA events, its launch
-    geometry and its bound (``bound_ms``: the K/V rows up to kv_len once, q
-    and out, through HBM; the flops at the bf16 tensor-core peak)."""
+def attn_timing(name, ins, torch, cyc, n_iter=50, mxu=False):
+    """``decode_attn`` on ``ins`` (``mxu``: its mxu_native variant): the
+    kernel (two timed runs), its plain version and
+    ``scaled_dot_product_attention`` by CUDA events, its launch geometry
+    and its bound (``bound_ms``: the K/V rows up to kv_len once, q and out,
+    through HBM; the flops at the bf16 tensor-core peak)."""
     from repro_torch.kernels.decode_attn import (
         decode_attn,
         decode_attn_plain,
@@ -1272,17 +1399,19 @@ def attn_timing(name, ins, torch, cyc, n_iter=50):
     q, k, v, kv_len = ins
     B, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
-    tol = ATTN_TOL_FULL[str(q.dtype).removeprefix("torch.")]
-    err, ok = close(decode_attn(*ins), decode_attn_plain(*ins), *tol)
+    got = decode_attn(*ins, mxu_native=mxu)
+    want = decode_attn_plain(*ins, mxu_native=mxu)
+    err, ok = (mxu_within(got, want, ins)[:2] if mxu else close(
+        got, want, *ATTN_TOL_FULL[str(q.dtype).removeprefix("torch.")]))
     if not ok:
         raise AssertionError(f"decode_attn != its plain version at {name}")
-    k_ms = ms(lambda: decode_attn(*ins), n_iter, torch, cyc)
-    p_ms = ms(lambda: decode_attn_plain(*ins), max(n_iter // 10, 3), torch,
-              cyc, attempts=1)
-    k_ms2 = ms(lambda: decode_attn(*ins), n_iter, torch, cyc)
+    k_ms = ms(lambda: decode_attn(*ins, mxu_native=mxu), n_iter, torch, cyc)
+    p_ms = ms(lambda: decode_attn_plain(*ins, mxu_native=mxu),
+              max(n_iter // 10, 3), torch, cyc, attempts=1)
+    k_ms2 = ms(lambda: decode_attn(*ins, mxu_native=mxu), n_iter, torch, cyc)
     try:
         lib, backend = sdpa_library(*ins, torch)
-        lib_err, lib_ok = close(lib(), decode_attn(*ins),
+        lib_err, lib_ok = close(lib(), decode_attn(*ins, mxu_native=mxu),
                                 *ATTN_TOL[str(q.dtype).removeprefix("torch.")])
         if not lib_ok:
             raise AssertionError(f"scaled_dot_product_attention computes "
@@ -1297,8 +1426,8 @@ def attn_timing(name, ins, torch, cyc, n_iter=50):
     bound = bound_ms(nbytes, flops)
     g = plan(B, Hq, Hkv, D, S, q.dtype)
     best = min(k_ms, k_ms2)
-    print(f"decode_attn at {name} (B {B}, Hq {Hq}, Hkv {Hkv}, D {D}, S {S}, "
-          f"{q.dtype}): kernel {k_ms:.5f} ms and {k_ms2:.5f} ms (device time "
+    print(f"decode_attn{' mxu_native' if mxu else ''} at {name} (B {B}, Hq "
+          f"{Hq}, Hkv {Hkv}, D {D}, S {S}, {q.dtype}): kernel {k_ms:.5f} ms and {k_ms2:.5f} ms (device time "
           f"per launch, two runs of {n_iter}), plain {p_ms:.5f} ms, library "
           f"{'null' if lib_ms is None else f'{lib_ms:.5f} ms'} "
           f"[scaled_dot_product_attention, backend {backend}], bound "
@@ -3042,6 +3171,15 @@ def attn_layers(cfg) -> int:
             "encdec": 2 * cfg.n_layers}[cfg.family]
 
 
+def mxu_layers(cfg) -> int:
+    """Launches a decode step of ``cfg`` of the mxu_native variant: its
+    self attention where ``attn_mxu_native`` is set in bf16 (the cross
+    attention never, as in the reference)."""
+    if not (cfg.attn_mxu_native and cfg.dtype == "bfloat16"):
+        return 0
+    return attn_layers(cfg) // (2 if cfg.family == "encdec" else 1)
+
+
 def family_cfg(arch):
     from repro_torch.configs import get_config
 
@@ -3073,25 +3211,28 @@ def family_state(model, cfg, B, cache_len, enc, device):
 def launches_held():
     """Within the block every ``decode_attn`` call of the kernel path is
     held to the plain version on the same inputs, at the full-width bound
-    (``ATTN_TOL_FULL``), and its output handed on; the plain version
+    (``ATTN_TOL_FULL``; the mxu_native variant's at ``mxu_bound``), and its
+    output handed on; the plain version
     launches no kernel.  Yields a dict that gets the calls and the largest
     error after the block, which fails if any output was out of bounds."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.decode_attn import decode_attn_plain
+    from repro_torch.kernels.decode_attn import decode_attn_plain, mxu_bound
 
     real = ops.decode_attn
     errs, bad, seen = [], [], {}
 
-    def held(q, k, v, kv_len, *, mode=None):
-        out = real(q, k, v, kv_len, mode=mode)
+    def held(q, k, v, kv_len, *, mxu_native=False, mode=None):
+        out = real(q, k, v, kv_len, mxu_native=mxu_native, mode=mode)
         if q.is_cuda and mode in (None, "cuda"):
-            want = decode_attn_plain(q, k, v, kv_len)
+            want = decode_attn_plain(q, k, v, kv_len, mxu_native=mxu_native)
             atol, rtol = ATTN_TOL_FULL[str(q.dtype).removeprefix("torch.")]
             err = (out.float() - want.float()).abs()
+            bound = (mxu_bound(q, k, v, kv_len, want)
+                     if mxu_native and q.dtype == torch.bfloat16
+                     else atol + rtol * want.float().abs())
             errs.append(err.amax())
-            bad.append((err > atol + rtol * want.float().abs()).any()
-                       | (out.dtype != want.dtype))
+            bad.append((err > bound).any() | (out.dtype != want.dtype))
         return out
 
     ops.decode_attn = held
@@ -3132,13 +3273,16 @@ def family_teacher_forced(model, cfg, fed, enc, device, mode=None,
 
     if mode is not None:
         return checked(run, {"decode_attn": 0}, n_classify=n)
+    want = {"decode_attn": attn_layers(cfg), MXU: mxu_layers(cfg)}
     with launches_held() as seen:
-        out = checked(run, {"decode_attn": attn_layers(cfg)}, n_classify=n)
+        out = checked(run, want, n_classify=n)
     if seen["calls"]:
         atol, rtol = ATTN_TOL_FULL[cfg.dtype]
+        bound = (f"atol {atol:.3g}, rtol {rtol:.3g}" if not want[MXU] else
+                 f"mxu_bound for the {want[MXU]} mxu_native launches a step")
         print(f"  {seen['calls']} decode_attn launches, each held to its "
-              f"plain version: max abs err {seen['max_abs_err']:.3g} (atol "
-              f"{atol:.3g}, rtol {rtol:.3g})")
+              f"plain version: max abs err {seen['max_abs_err']:.3g} "
+              f"({bound})")
     return out
 
 
@@ -3990,6 +4134,214 @@ def train_phase(seed, device):
     return out
 
 
+# ------------------------------------ phase 17: mxu_native, the mesh
+def mxu_serving_phase(seed, device):
+    """internlm2-1.8b with ``attn_mxu_native`` through the launcher's serve
+    loop at full width (``LM_SERVE``): every decode_attn launch the
+    mxu_native variant's.  Returns (cfg, model, runs)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+
+    cfg = get_config(LM_ARCH).scaled(attn_mxu_native=True)
+    steps = LM_SERVE["prompt_len"] + LM_SERVE["gen"]
+    n = LM_SERVE["swaps"] * steps
+    model, _, runs = checked(
+        lambda: serve(cfg, seed=seed, device=device, **LM_SERVE),
+        {"decode_attn": cfg.n_layers, MXU: cfg.n_layers}, n_classify=n)
+    B = LM_SERVE["batch"]
+    for t, run in enumerate(runs):
+        print(f"tenant {t} (attn_mxu_native): {B}x({LM_SERVE['prompt_len']} "
+              f"prompt + {LM_SERVE['gen']} greedy) steps in "
+              f"{run.seconds * 1e3:.1f} ms ({B * LM_SERVE['gen'] / run.seconds:.1f}"
+              f" generated tok/s)")
+    print(f"{n} decode steps x {cfg.n_layers} mxu_native decode_attn launches")
+    return cfg, model, runs
+
+
+def mxu_check_phase(cfg, model, runs, seed, device):
+    """Every tenant's steps teacher-forced through the kernel (each launch
+    held to the mxu_native plain version at ``mxu_bound``) against the same
+    steps with the mxu_native twin (``mode="ref"``), at phase 8's bound;
+    the served tokens their argmax.  The last tenant's kernel decode also
+    against the default kernel's (it must differ: the flag reaches the
+    kernel) and a wrong attention refused.  Returns the errors."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.launch.serve import tenant_generator
+
+    hold = Holds()
+    last = len(runs) - 1
+    for tenant in reversed(range(len(runs))):
+        run = runs[tenant]
+        if tenant != last:
+            model.init_(tenant_generator(seed, tenant, device))
+        print(f"tenant {tenant}, {run.fed.shape[1]} steps teacher-forced:")
+        dec = family_teacher_forced(model, cfg, run.fed, None, device)
+        P = run.prompt_len
+        if not torch.equal(dec[:, P - 1:].argmax(dim=-1).cpu(),
+                           run.tokens[:, P:]):
+            raise AssertionError(f"tenant {tenant}: the served tokens are not "
+                                 "the argmax of the teacher-forced steps")
+        twin = family_teacher_forced(model, cfg, run.fed, None, device,
+                                     mode="ref")
+        hold(f"tenant {tenant} mxu_native decode vs the mxu_native twin",
+             dec, twin, DECODE_TOL)
+        if tenant == last:
+            default = family_teacher_forced(
+                model, cfg.scaled(attn_mxu_native=False), run.fed, None,
+                device)
+            share = float((default != dec).float().mean())
+            print(f"  the default kernel's decode: {100 * share:.1f}% of the "
+                  "logits differ from the mxu_native decode's")
+            if share == 0:
+                raise AssertionError("attn_mxu_native does not reach the "
+                                     "kernel: the decode equals the default")
+            hold("default kernel decode vs the mxu_native twin", default,
+                 twin, DECODE_TOL)
+            with wrong_attention(lambda q, k, v, kv_len: ref.decode_attn(
+                    q, k, v, kv_len - 1, mxu_native=True)):
+                bad = family_teacher_forced(model, cfg, run.fed, None,
+                                            device, mode="ref")
+            hold("newest row dropped, vs the mxu_native twin", bad, twin,
+                 DECODE_TOL, control=True)
+            del default, bad
+        del dec, twin
+    torch.cuda.empty_cache()
+    if hold.bad:
+        raise AssertionError(f"failed: {hold.bad}")
+    return hold.errors
+
+
+def mxu_step_timing(cfg, model, seed, pairs=10):
+    """The full-width decode step at kv_len ``LM_CACHE``, B 16, with the
+    default attention and with ``attn_mxu_native``: ``pairs`` pairs of
+    windows of 20 steps by the host clock, the two in alternating order.
+    Returns {"default": [ms a window], "mxu_native": [...], "mxu_wins": n}
+    (pairs whose mxu_native window was the faster)."""
+    import statistics
+
+    import torch
+    from repro_torch.models.transformer import decode_step, init_decode_state
+
+    device = model.embed.device
+    B, T = LM_SERVE["batch"], LM_CACHE
+    gen = torch.Generator(device=device).manual_seed(seed + 13)
+    state = init_decode_state(cfg, B, T, device=device)
+    for cache in state.values():
+        cache.normal_(generator=gen)
+    tok = torch.randint(0, cfg.vocab, (B, 1), generator=gen, device=device)
+    steps = {k: (lambda c=c: decode_step(model, state, tok, T - 1, c))
+             for k, c in (("default", cfg.scaled(attn_mxu_native=False)),
+                          ("mxu_native", cfg))}
+    for step in steps.values():
+        step()
+    torch.cuda.synchronize()
+    out = {k: [] for k in steps}
+    for i in range(pairs):
+        for k in (("default", "mxu_native") if i % 2 == 0
+                  else ("mxu_native", "default")):
+            out[k].append(host_step_s(steps[k], torch, 20, windows=1)[0]
+                          * 1e3)
+    out["mxu_wins"] = sum(m < d for d, m in zip(out["default"],
+                                                 out["mxu_native"]))
+    q = statistics.quantiles(out["default"], n=4)
+    print(f"decode step at kv_len {T}, B {B}, {pairs} pairs of 20-step "
+          f"windows in alternating order: default median "
+          f"{statistics.median(out['default']):.3f} ms (quartiles "
+          f"{q[0]:.3f} / {q[2]:.3f}), mxu_native median "
+          f"{statistics.median(out['mxu_native']):.3f} ms; mxu_native "
+          f"faster in {out['mxu_wins']} of {pairs} pairs")
+    del state
+    return out
+
+
+def mesh_phase(device):
+    """The dry run over its 80 cells (``launch/dryrun.py``: 10 archs x 4
+    shapes x the 16 x 16 and 2 x 16 x 16 meshes, on ``meta``): every cell
+    ``ok`` and fitting the card, or ``skip`` where ``applicable`` says so.
+    Then, for each of ``MESH_CELLS`` (1 pod), device (0, 0)'s shard of every
+    leaf a card holds allocated on this card and zeroed: the allocator's
+    growth must be the record's ``analytic_bytes_per_device``, each tensor
+    rounded up by less than ``ALLOC_ROUND``, and below the card's memory.
+    Returns {cell: numbers}."""
+    import torch
+    from repro_torch.analysis import HW
+    from repro_torch.configs import all_cells, applicable, get_config
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    n = {"ok": 0, "skip": 0}
+    for arch, shape in all_cells():
+        for mp in (False, True):
+            rec = dryrun.run_cell(arch, shape, multi_pod=mp)
+            ok, why = applicable(get_config(arch), shape)
+            want = "ok" if ok else "skip"
+            if rec["status"] != want or (ok and not rec["fits"]) or (
+                    not ok and rec["reason"] != why):
+                raise AssertionError(f"dry run {arch} {shape} "
+                                     f"{2 if mp else 1} pod: {rec}")
+            n[want] += 1
+    print(f"dry run: {n['ok']} cells ok and fitting {HW().hbm_bytes / 1e9:g} "
+          f"GB, {n['skip']} skipped (full attention at long_500k), in "
+          f"{time.perf_counter() - t0:.1f} s (records in dryrun_out/)")
+    out = {}
+    for arch, shape in MESH_CELLS:
+        meta, leaves = dryrun.cell_leaves(arch, shape)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(device)
+        held, worst = [], 0
+        for group, path, shard, dtype in leaves:
+            before = torch.cuda.memory_allocated(device)
+            x = torch.empty(shard, dtype=dtype, device=device).zero_()
+            grew = torch.cuda.memory_allocated(device) - before
+            if not x.nbytes <= grew < x.nbytes + ALLOC_ROUND:
+                raise AssertionError(f"{group} {path} {shard}: {x.nbytes} "
+                                     f"bytes took {grew}")
+            worst = max(worst, grew - x.nbytes)
+            held.append(x)
+        torch.cuda.synchronize()
+        growth = torch.cuda.memory_allocated(device) - base
+        analytic = meta["analytic_bytes_per_device"]
+        free, total = torch.cuda.mem_get_info(device)
+        print(f"{arch} {shape}, device (0, 0) of the 16 x 16 mesh: "
+              f"{len(leaves)} shards ({', '.join(sorted({g for g, *_ in leaves}))})"
+              f" allocated and zeroed: {growth:,} bytes against the dry "
+              f"run's {analytic:,.0f} ({growth - analytic:,.0f} of allocator "
+              f"rounding, at most {worst:,} a tensor); {free / 1e9:.2f} of "
+              f"{total / 1e9:.2f} GB free on the card beside them")
+        if not (0 <= growth - analytic < len(leaves) * ALLOC_ROUND
+                and growth < total and analytic <= HW().hbm_bytes):
+            raise AssertionError(f"{arch} {shape}: the allocator grew "
+                                 f"{growth} for {analytic} analytic bytes")
+        out[f"{arch} {shape}"] = dict(shards=len(leaves), allocated=growth,
+                                      analytic=analytic)
+        del held, x
+        torch.cuda.empty_cache()
+    return out
+
+
+def mxu_phase(seed, device, main_path):
+    """Phase 17: the mxu_native serving path and the mesh's device."""
+    cfg, model, runs = main_path("lm_decode_mxu_native",
+                                 lambda: mxu_serving_phase(seed, device),
+                                 ["decode_attn", MXU])
+    errors = mxu_check_phase(cfg, model, runs, seed, device)
+    B = LM_SERVE["batch"]
+    out = {"generated_tokens_per_s": [B * LM_SERVE["gen"] / r.seconds
+                                      for r in runs],
+           "max_abs_err": {k: v for k, v in errors.items()
+                           if not k.startswith("control")}}
+    out["step_ms"] = mxu_step_timing(cfg, model, seed)
+    del model
+    import torch
+    torch.cuda.empty_cache()
+    stamp("mxu_native serving held and timed")
+    out["mesh"] = mesh_phase(device)
+    return out
+
+
 def acorn_and_dense(seed, prof, device, libs, main_path, path_launches,
                     torch) -> tuple:
     """Phases 2-14: returns the ``paths`` JSON object (``main`` adds phase
@@ -4030,7 +4382,7 @@ def acorn_and_dense(seed, prof, device, libs, main_path, path_launches,
     t, rps, steps, writes = timing_phase(
         zoos, runtimes, eager_zoos, eager_runtimes, pb, prof, models, torch)
     del eager_zoos, eager_runtimes
-    t["decode_attn"], step_tok_s = lm_timing(cfg, lm, seed, torch)
+    t["decode_attn"], t[MXU], step_tok_s = lm_timing(cfg, lm, seed, torch)
     stamp("decode step timed")
     wide = attn_shapes_timing(seed, torch)
     stamp("attention shapes timed")
@@ -4067,22 +4419,27 @@ def acorn_and_dense(seed, prof, device, libs, main_path, path_launches,
 
 def kernels_line(t, path_launches, lm_dtype) -> dict:
     """The contract's ``kernels`` JSON object: each kernel's launches on
-    the main paths and its measurements from phase 9."""
+    the main paths and its measurements from phase 9 (``decode_attn``'s
+    mxu_native variant a row of its own, its launches those of phase
+    17)."""
     tolerance = {k: ({"atol": ATTN_TOL_FULL[lm_dtype][0],
                       "rtol": ATTN_TOL_FULL[lm_dtype][1]}
                      if k == "decode_attn" else {"atol": 0, "rtol": 0})
                  for k in kernels()}
+    tolerance[MXU] = {"bound": "mxu_bound: one bf16 ulp + 2^-7 sum P|V|"}
+    source = {**{k: k for k in kernels()}, MXU: "decode_attn"}
+    replaces = {**REPLACES, MXU: REPLACES["decode_attn"]}
     return {"kernels": [{
         "name": name, "route": "cuda",
-        "source": f"src/repro_torch/csrc/{name}.cu",
-        "replaces": REPLACES[name],
-        "launches": sum(p[name] for p in path_launches.values()),
+        "source": f"src/repro_torch/csrc/{source[name]}.cu",
+        "replaces": replaces[name],
+        "launches": sum(p.get(name, 0) for p in path_launches.values()),
         "max_abs_err": t[name]["max_abs_err"],
         "tolerance": tolerance[name], "ms": t[name]["ms"],
         "plain_ms": t[name]["plain_ms"], "bound_ms": t[name]["bound_ms"],
         "bound_by": "bytes", "library_ms": t[name]["library_ms"],
         "matched_twin": t[name]["matched"]}
-        for name in kernels()],
+        for name in [*kernels(), MXU]],
         "launch_floor_ms": t["launch_floor_ms"],
         "launch_floor_forest_vote_grid_ms":
             t["launch_floor_forest_vote_grid_ms"],
@@ -4108,6 +4465,9 @@ def main(argv=None) -> int:
                          "shapes (phase 4's part) and phase 15")
     ap.add_argument("--train", action="store_true",
                     help="only the build and phase 16 (the training stack)")
+    ap.add_argument("--mxu", action="store_true",
+                    help="only the build, phase 4's mxu_native part and "
+                         "phase 17 (mxu_native serving, the mesh's device)")
     ap.add_argument("--train-resume", action="store_true",
                     help="only phase 16's resume check (phase 16 runs this "
                          "as a child with deterministic algorithms)")
@@ -4154,17 +4514,23 @@ def main(argv=None) -> int:
         return result
 
     fam_attn = {}
+    if args.mxu:
+        phase("4 (part) decode_attn's mxu_native variant vs its plain "
+              "version")
+        mxu_attn_phase(torch.Generator(device=device).manual_seed(11),
+                       device)
     if args.families:
         phase("4 (part) decode_attn at the families' shapes")
         family_attn_phase(torch.Generator(device=device).manual_seed(11),
                           device)
-    if args.families or args.train:
+    only = args.families or args.train or args.mxu
+    if only:
         paths, shapes, t, lm_dtype = ({"launches": path_launches}, {},
                                       None, None)
     else:
         paths, shapes, t, lm_dtype = acorn_and_dense(
             args.seed, prof, device, libs, main_path, path_launches, torch)
-    if not args.train:
+    if not (args.train or args.mxu):
         phase("15 main path: the moe, hybrid, rwkv and encdec families at "
               "full width through launch/serve.py; the hybrid's ring "
               "wrapped")
@@ -4173,7 +4539,7 @@ def main(argv=None) -> int:
             ["decode_attn"])
         fam_attn = family_attn_timing(args.seed, torch)
         stamp("family attention shapes timed")
-    if not args.families:
+    if not (args.families or args.mxu):
         phase(f"16 main path: training {TRAIN_ARCH} at full width through "
               "launch/train.py; each family's f32 step against the CPU; a "
               "deterministic resume")
@@ -4182,7 +4548,12 @@ def main(argv=None) -> int:
         if any(path_launches["train"].values()):
             raise AssertionError("the training path launched a kernel: "
                                  f"{path_launches['train']}")
-    if args.families or args.train:
+    if not (args.families or args.train):
+        phase(f"17 main path: {LM_ARCH} decode serving with attn_mxu_native "
+              "at full width; the dry run's 80 cells and device (0, 0) of "
+              "the production mesh held on this card")
+        paths["mxu_native"] = mxu_phase(args.seed, device, main_path)
+    if only:
         kernel_resources(libs)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

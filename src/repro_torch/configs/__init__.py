@@ -2,7 +2,8 @@
 and the shape grid ``SHAPES``.
 
 Port of ``src/repro/configs/__init__.py``: the ten architectures of the
-five families, each config file a copy naming its source.
+five families, each config file a copy naming its source, and the dry
+run's cell grid (``applicable``, ``all_cells``; :56-64).
 """
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ import importlib
 
 from repro_torch.models.common import ArchConfig
 
-__all__ = ["ARCH_IDS", "ShapeSpec", "SHAPES", "get_config", "smoke_config"]
+__all__ = ["ARCH_IDS", "ShapeSpec", "SHAPES", "get_config", "smoke_config",
+           "applicable", "all_cells"]
 
 ARCH_IDS = [
     "internlm2-1.8b",
@@ -57,3 +59,14 @@ def get_config(name: str) -> ArchConfig:
 
 def smoke_config(name: str) -> ArchConfig:
     return _module(name).SMOKE
+
+
+def applicable(cfg: ArchConfig, shape: str) -> tuple[bool, str]:
+    """long_500k needs sub-quadratic attention (DESIGN.md §3 skip table)."""
+    if shape == "long_500k" and not cfg.subquadratic:
+        return False, "full-attention arch: 500k decode cache infeasible (skip per spec)"
+    return True, ""
+
+
+def all_cells() -> list[tuple[str, str]]:
+    return [(a, s) for a in ARCH_IDS for s in SHAPES]

@@ -38,6 +38,16 @@
 //     fragments, then P V with P split into bf16 hi + lo parts (P = hi + lo
 //     to ~2^-17), so the product keeps f32-like precision: bf16 P alone
 //     misses one bf16 ulp of the output on short rows.
+//   * mxu_native (the reference's `attn_mxu_native` decode lever,
+//     src/repro/models/attention.py:134-147: bf16 operands, f32
+//     accumulation, P cast to bf16): the same kernel with the lo part and
+//     its second mma dropped (template flag MXU).  The reference rounds the
+//     normalised softmax to bf16; this kernel rounds the online softmax's
+//     unnormalised exp(s - m) and divides by the f32 row sum at the end, so
+//     the two differ by bf16 rounding of P (2^-8 relative a term, either
+//     way: kernels/decode_attn.py, `mxu_bound`).  In f32
+//     the reference's casts are no-ops and the wrapper runs the f32 kernel
+//     unchanged.
 //   * f32: CUDA cores, a warp (half a warp at D 16) per key row, lanes over
 //     D, up to 8 query rows a block, online softmax in registers.
 //   * D 256 (recurrentgemma's heads), bf16: a warp's query fragments
@@ -264,8 +274,9 @@ __device__ __forceinline__ void q_frag(unsigned (&a)[4], const char* qs,
 
 // bf16 on tensor cores: every warp holds the block's 16 query rows (in
 // registers, or at D above 128 in shared memory); warp kg takes the 16-key
-// chunks kg, kg + WARPS, ... of every tile.
-template <int D>
+// chunks kg, kg + WARPS, ... of every tile.  MXU: P in bf16 alone (no lo
+// part).
+template <int D, bool MXU>
 __global__ void __launch_bounds__(THREADS) attn_bf16(
     const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
     const __nv_bfloat16* __restrict__ k,  // [B, S, Hkv, D]
@@ -379,7 +390,8 @@ __global__ void __launch_bounds__(THREADS) attn_bf16(
         m[hr] = mx[hr];
         l[hr] *= alpha[hr];
       }
-      unsigned hi[4], lo[4];
+      unsigned hi[4];
+      [[maybe_unused]] unsigned lo[4];
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -393,7 +405,8 @@ __global__ void __launch_bounds__(THREADS) attn_bf16(
             ph[e] = __bfloat162float(__float2bfloat16_rn(p[e]));
           }
           hi[2 * j + pr] = pack_bf16(ph[0], ph[1]);
-          lo[2 * j + pr] = pack_bf16(p[0] - ph[0], p[1] - ph[1]);
+          if constexpr (!MXU)
+            lo[2 * j + pr] = pack_bf16(p[0] - ph[0], p[1] - ph[1]);
         }
       // acc = acc * alpha + P V over d tiles of 8
 #pragma unroll
@@ -414,7 +427,7 @@ __global__ void __launch_bounds__(THREADS) attn_bf16(
         const unsigned b0 = (unsigned)*u0 | ((unsigned)*u1 << 16);
         const unsigned b1 = (unsigned)*u2 | ((unsigned)*u3 << 16);
         mma_bf16(acc[nt], hi, b0, b1);
-        mma_bf16(acc[nt], lo, b0, b1);
+        if constexpr (!MXU) mma_bf16(acc[nt], lo, b0, b1);
       }
     }
   }
@@ -597,16 +610,16 @@ template <int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const int* kv_len, void* out, float* ws, int* counters,
                      int S, int Hq, int Hkv, int n_chunks, int split_len,
-                     int n_split, int ws_rows, int bf16, int qc, int smem,
-                     dim3 grid, float scale, cudaStream_t st) {
+                     int n_split, int ws_rows, int bf16, int mxu, int qc,
+                     int smem, dim3 grid, float scale, cudaStream_t st) {
   using B16 = __nv_bfloat16;
   if (bf16) {
     const B16 *q_ = (const B16*)q, *k_ = (const B16*)k, *v_ = (const B16*)v;
     B16* o_ = (B16*)out;
     if (qc != 16) return cudaErrorInvalidValue;
-    return go(attn_bf16<D>, smem, grid, st, q_, k_, v_, kv_len, o_, ws,
-              counters, S, Hq, Hkv, n_chunks, split_len, n_split, ws_rows,
-              scale);
+    return go(mxu ? attn_bf16<D, true> : attn_bf16<D, false>, smem, grid, st,
+              q_, k_, v_, kv_len, o_, ws, counters, S, Hq, Hkv, n_chunks,
+              split_len, n_split, ws_rows, scale);
   }
   const float *q_ = (const float*)q, *k_ = (const float*)k, *v_ = (const float*)v;
   float* o_ = (float*)out;
@@ -627,9 +640,10 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
 
 // Plain C entry point, loaded with ctypes.  q, k, v and out are bfloat16
 // (bf16 = 1) or float32 (bf16 = 0), contiguous, 16-byte aligned; kv_len is
-// int32 [B].  The geometry comes from the wrapper (kernels/decode_attn.py,
-// `plan`): `qc` query rows a block (16 in bf16; 1, 2, 4 or 8 in f32),
-// `tile` keys a ring stage, `n_split` spans of `split_len` rows covering
+// int32 [B].  mxu_native = 1 (bf16 only) keeps P in bf16 alone.  The
+// geometry comes from the wrapper (kernels/decode_attn.py, `plan`): `qc`
+// query rows a block (16 in bf16; 1, 2, 4 or 8 in f32), `tile` keys a ring
+// stage, `n_split` spans of `split_len` rows covering
 // [0, S), `ws_rows` rows a span's partial holds in `ws` (f32,
 // B * Hkv * ceil(G / qc) * n_split * ws_rows * (D + 4)), and `smem` bytes of
 // dynamic shared memory; a geometry this file would not choose is refused.
@@ -641,10 +655,12 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
 extern "C" int acorn_decode_attn(const void* q, const void* k, const void* v,
                                  const void* kv_len, void* out, void* ws,
                                  void* counters, int B, int S, int Hq,
-                                 int Hkv, int D, int bf16, int qc, int tile,
+                                 int Hkv, int D, int bf16, int mxu_native,
+                                 int qc, int tile,
                                  int n_split, int split_len, int ws_rows,
                                  int smem, float scale, void* stream) {
-  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || qc <= 0 || n_split <= 0)
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || qc <= 0 || n_split <= 0 ||
+      (mxu_native && !bf16))
     return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
   const int n_chunks = (G + qc - 1) / qc;
@@ -659,11 +675,11 @@ extern "C" int acorn_decode_attn(const void* q, const void* k, const void* v,
   float* ws_ = (float*)ws;
   int* c_ = (int*)counters;
   switch (D) {
-    case 16: return (int)launch_d<16>(q, k, v, n_, out, ws_, c_, S, Hq, Hkv, n_chunks, split_len, n_split, ws_rows, bf16, qc, smem, grid, scale, st);
-    case 32: return (int)launch_d<32>(q, k, v, n_, out, ws_, c_, S, Hq, Hkv, n_chunks, split_len, n_split, ws_rows, bf16, qc, smem, grid, scale, st);
-    case 64: return (int)launch_d<64>(q, k, v, n_, out, ws_, c_, S, Hq, Hkv, n_chunks, split_len, n_split, ws_rows, bf16, qc, smem, grid, scale, st);
-    case 128: return (int)launch_d<128>(q, k, v, n_, out, ws_, c_, S, Hq, Hkv, n_chunks, split_len, n_split, ws_rows, bf16, qc, smem, grid, scale, st);
-    case 256: return (int)launch_d<256>(q, k, v, n_, out, ws_, c_, S, Hq, Hkv, n_chunks, split_len, n_split, ws_rows, bf16, qc, smem, grid, scale, st);
+    case 16: return (int)launch_d<16>(q, k, v, n_, out, ws_, c_, S, Hq, Hkv, n_chunks, split_len, n_split, ws_rows, bf16, mxu_native, qc, smem, grid, scale, st);
+    case 32: return (int)launch_d<32>(q, k, v, n_, out, ws_, c_, S, Hq, Hkv, n_chunks, split_len, n_split, ws_rows, bf16, mxu_native, qc, smem, grid, scale, st);
+    case 64: return (int)launch_d<64>(q, k, v, n_, out, ws_, c_, S, Hq, Hkv, n_chunks, split_len, n_split, ws_rows, bf16, mxu_native, qc, smem, grid, scale, st);
+    case 128: return (int)launch_d<128>(q, k, v, n_, out, ws_, c_, S, Hq, Hkv, n_chunks, split_len, n_split, ws_rows, bf16, mxu_native, qc, smem, grid, scale, st);
+    case 256: return (int)launch_d<256>(q, k, v, n_, out, ws_, c_, S, Hq, Hkv, n_chunks, split_len, n_split, ws_rows, bf16, mxu_native, qc, smem, grid, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

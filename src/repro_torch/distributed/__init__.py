@@ -1,7 +1,7 @@
-"""The training side's distributed pieces.  Port of ``src/repro/distributed``
-so far: ``compression`` (int8 gradient compression with error feedback).
-The sharding specs (``sharding.py``) come with the mesh and the dry run
-(Queue 1 item 9c)."""
+"""The training side's distributed pieces.  Port of ``src/repro/distributed``:
+``compression`` (int8 gradient compression with error feedback) and
+``sharding`` (the FSDP x TP partition specs over the production mesh,
+imported from ``repro_torch.distributed.sharding``)."""
 from repro_torch.distributed.compression import (
     compress_decompress,
     dequantize_int8,

@@ -9,9 +9,14 @@ ring, tensor cores in bf16).  This module holds:
 
 * ``decode_attn`` — the wrapper.  On CUDA tensors it launches the kernel or
   raises; on CPU tensors it runs ``decode_attn_plain``.
-  ``decode_attn.launches`` counts launches.
+  ``decode_attn.launches`` counts launches, ``decode_attn.mxu_launches``
+  those of the ``mxu_native`` variant.  ``mxu_native=True`` (the
+  reference's ``attn_mxu_native`` lever) keeps the softmax P in bf16 for
+  P.V, as the reference casts it; in f32 it changes nothing.
 * ``decode_attn_plain`` — the kernel's plain torch version on the same
   operands, the twin ``ref.decode_attn``.
+* ``mxu_bound`` — how far two bf16-P attentions (the ``mxu_native``
+  kernel and its plain version) may differ, element by element.
 * ``plan`` — the launch geometry: query rows a block, keys a ring stage,
   how the cache splits into spans, shared memory.  Plain Python, so the CPU
   tests check it.
@@ -30,8 +35,8 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.launch import check, current_stream, launch, on_card
 
-__all__ = ["decode_attn", "decode_attn_plain", "plan", "Plan", "HEAD_DIMS",
-           "SOURCE"]
+__all__ = ["decode_attn", "decode_attn_plain", "mxu_bound", "plan", "Plan",
+           "HEAD_DIMS", "SOURCE"]
 
 SOURCE = "decode_attn"           # csrc/decode_attn.cu
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel's instantiations
@@ -130,19 +135,35 @@ def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
     return c
 
 
-def decode_attn_plain(q, k, v, kv_len):
+def decode_attn_plain(q, k, v, kv_len, *, mxu_native=False):
     """The kernel's function in plain torch, on the kernel's operands."""
-    return ref.decode_attn(q, k, v, kv_len)
+    return ref.decode_attn(q, k, v, kv_len, mxu_native=mxu_native)
+
+
+def mxu_bound(q, k, v, kv_len, want) -> torch.Tensor:
+    """The bound, element by element, of an ``mxu_native`` attention (bf16)
+    against ``want``, another one on the same inputs: one bf16 ulp of
+    ``want`` (each rounds its f32 output once) plus 2^-7 sum_t P_t |V_t|
+    (each rounds every weight P_t to bf16 once, within 2^-8 of it, bf16's
+    unit roundoff: the kernel the online softmax's unnormalised exp(s - m),
+    the plain version, like the reference, the normalised P).  float32,
+    ``want``'s shape."""
+    w = want.float().abs()
+    ulp = (torch.nextafter(w, torch.full_like(w, float("inf"))) - w) * 2.0 ** 16
+    pv = ref.decode_attn(q.float(), k.float(), v.float().abs(), kv_len)
+    return ulp + 2.0 ** -7 * pv
 
 
 def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                kv_len: torch.Tensor) -> torch.Tensor:
+                kv_len: torch.Tensor, *,
+                mxu_native: bool = False) -> torch.Tensor:
     """Attention of q [B, Hq, D] over the cache k/v [B, S, Hkv, D] (all
     bfloat16 or all float32, contiguous), row b over its first
     ``kv_len[b]`` positions (int32 [B]); query head h reads KV head
-    ``h // (Hq // Hkv)``.  Returns [B, Hq, D] in q's dtype."""
+    ``h // (Hq // Hkv)``.  Returns [B, Hq, D] in q's dtype.
+    ``mxu_native``: P in bf16 for P.V (bfloat16 only; a no-op in f32)."""
     if not on_card("decode_attn", q=q, k=k, v=v, kv_len=kv_len):
-        return decode_attn_plain(q, k, v, kv_len)
+        return decode_attn_plain(q, k, v, kv_len, mxu_native=mxu_native)
     if q.dtype not in _DTYPES:
         raise TypeError(f"q: dtype {q.dtype}, kernel takes bfloat16 or "
                         "float32")
@@ -178,10 +199,14 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = current_stream(q.device)
     launch(SOURCE, "acorn_decode_attn", q.device, q, k, v, kv_len, out, ws,
            _counters(q.device, stream, groups), B, S, Hq, Hkv, D,
-           _DTYPES[q.dtype], p.qc, p.tile, p.n_split, p.split_len, p.ws_rows,
+           _DTYPES[q.dtype], int(mxu_native and q.dtype == torch.bfloat16),
+           p.qc, p.tile, p.n_split, p.split_len, p.ws_rows,
            p.smem, D ** -0.5, stream=stream)
     decode_attn.launches += 1
+    if mxu_native and q.dtype == torch.bfloat16:
+        decode_attn.mxu_launches += 1
     return out
 
 
 decode_attn.launches = 0
+decode_attn.mxu_launches = 0     # of those, the mxu_native variant's

@@ -215,15 +215,16 @@ def classify_fused_v(codes, features, vid, code_value, code_mask, fid, f_lo,
     return walked, label, sums
 
 
-def decode_attn(q, k, v, kv_len, *, mode: str | None = None):
+def decode_attn(q, k, v, kv_len, *, mxu_native: bool = False,
+                mode: str | None = None):
     """GQA decode attention, q [B, Hq, D] over the cache k/v
     [B, S, Hkv, D] masked to ``kv_len`` int32 [B]: ``"cuda"`` is the
     kernel wrapper (one launch on CUDA tensors), ``"ref"`` the twin;
-    ``None`` follows the device."""
+    ``None`` follows the device.  ``mxu_native``: P in bf16 for P.V."""
     m = resolve_mode(mode, q.device)
     if m not in _KERNEL_MODES:
         raise ValueError(f"decode_attn mode {mode!r}: one of None, "
                          f"{_KERNEL_MODES}")
     if m == "ref":
-        return ref.decode_attn(q, k, v, kv_len)
-    return _attn.decode_attn(q, k, v, kv_len)
+        return ref.decode_attn(q, k, v, kv_len, mxu_native=mxu_native)
+    return _attn.decode_attn(q, k, v, kv_len, mxu_native=mxu_native)

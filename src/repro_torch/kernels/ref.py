@@ -200,12 +200,18 @@ def classify_fused_v(codes, features, vid, code_value, code_mask, fid, f_lo,
     return walked, label, sums
 
 
-def decode_attn(q, k, v, kv_len):
+def decode_attn(q, k, v, kv_len, *, mxu_native=False):
     """GQA decode attention: one new token's query q [B, Hq, D] against a
     KV cache k/v [B, S, Hkv, D], row b masked to its first ``kv_len[b]``
     positions; a float32 softmax, the output [B, Hq, D] in q's dtype.
     Query head h reads KV head ``h // (Hq // Hkv)``.  A row with
-    ``kv_len <= 0`` gives zeros, as the TPU kernel does."""
+    ``kv_len <= 0`` gives zeros, as the TPU kernel does.
+
+    ``mxu_native`` (bfloat16): the reference's ``decode_attention(...,
+    mxu_native=True)`` (``src/repro/models/attention.py:134-147``): the
+    normalised softmax P rounded to bfloat16, then P.V accumulated in
+    float32.  In float32 the reference's casts are no-ops, and so is the
+    flag."""
     B, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -216,6 +222,10 @@ def decode_attn(q, k, v, kv_len):
     logits = logits.masked_fill(~mask, float("-inf"))
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - torch.where(torch.isinf(m), 0.0, m))
-    out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
-    out = out / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    if mxu_native and q.dtype == torch.bfloat16:
+        p = (p / den).to(torch.bfloat16).float()
+        out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
+    else:
+        out = torch.einsum("bhgs,bshd->bhgd", p, v.float()) / den
     return out.reshape(B, Hq, D).to(q.dtype)

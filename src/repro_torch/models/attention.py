@@ -21,9 +21,10 @@ reads it): the local attention's ring buffer lives in the caller's cache,
 ``kv_len = min(pos + 1, T)`` covers them.  Where JAX's jnp
 ``decode_attention`` returns the mean of V for a row with ``kv_len = 0``
 (a softmax over all ``-1e30``), the port returns zeros, as the TPU kernel
-does; the decode step always has ``kv_len >= 1``.  ``mxu_native`` (bf16
-operands into the matmuls) is not ported: its one user is the dry run's
-overrides, which come with the dry run (Queue 1 item 9c).
+does; the decode step always has ``kv_len >= 1``.  ``mxu_native`` (the
+reference's decode lever: bf16 operands, f32 accumulation, the softmax P
+cast to bf16 before P.V) runs the kernel's bf16-P variant, or the twin's;
+in f32 the reference's casts are no-ops, and the port runs its default.
 """
 from __future__ import annotations
 
@@ -122,12 +123,10 @@ def decode_attention(
     """One-token GQA decode through ``ops.decode_attn`` (``mode``: None
     follows the device, ``"cuda"`` the kernel, ``"ref"`` the twin).
     ``window`` has no effect, as in the reference: a ring-buffer cache is
-    the caller's (see the module's docstring)."""
-    if mxu_native:
-        raise NotImplementedError("attn_mxu_native is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 9c, with the "
-                                  "dry run)")
+    the caller's (see the module's docstring).  ``mxu_native``: the
+    softmax P rounded to bf16 for P.V, f32 accumulation (a no-op in f32),
+    as the reference's lever."""
     B, _, Hq, D = q.shape
     out = ops.decode_attn(q.reshape(B, Hq, D), k_cache, v_cache, kv_len,
-                          mode=mode)
+                          mxu_native=mxu_native, mode=mode)
     return out.reshape(B, 1, Hq, D)

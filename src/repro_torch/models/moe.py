@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["moe_ffn", "router_dispatch"]
+__all__ = ["moe_ffn", "router_dispatch", "check_impl"]
 
 
 def _route(logits: torch.Tensor, top_k: int):
@@ -71,17 +71,22 @@ def _experts(xe: torch.Tensor, params) -> torch.Tensor:
     return torch.einsum("ecf,efd->ecd", h, params["wd"])
 
 
+def check_impl(impl: str) -> None:
+    """Raise unless the port runs the dispatch ``impl``."""
+    if impl not in ("onehot", "sort"):
+        raise ValueError(f"moe impl {impl!r}: the port runs 'onehot' and "
+                         "'sort' ('sort_sharded' needs a JAX mesh)")
+
+
 def moe_ffn(x: torch.Tensor, params, *, top_k: int, capacity_factor: float,
             impl: str = "onehot"):
     """x [B, S, D]; params (a dict or a module with ``[]``): router
     [D, E] f32, wg/wu [E, D, F], wd [E, F, D].  Returns (y [B, S, D],
     aux)."""
+    check_impl(impl)
     if impl == "sort":
         return _moe_ffn_sort(x, params, top_k=top_k,
                              capacity_factor=capacity_factor)
-    if impl != "onehot":
-        raise ValueError(f"moe impl {impl!r}: the port runs 'onehot' and "
-                         "'sort' ('sort_sharded' needs a JAX mesh)")
     B, S, D = x.shape
     E = params["router"].shape[1]
     T = B * S

@@ -40,6 +40,8 @@ stream its caller is on.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import threading
 from typing import Callable
 
@@ -60,6 +62,22 @@ __all__ = ["GraphCache", "Serial"]
 # capture must hold only that capture's launches.
 _CAPTURE = threading.Lock()
 _COUNT = threading.Lock()
+
+
+@contextlib.contextmanager
+def _collector_paused():
+    """Python's cyclic collector off while a graph is captured.  A
+    collection inside the capture may free another, unreachable
+    ``CUDAGraph`` (a dropped executor's cache), and destroying a graph is
+    an operation CUDA forbids on a capturing thread: the capture would end
+    invalidated (``cudaErrorStreamCaptureInvalidated``)."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 def _wrappers() -> dict:
@@ -177,7 +195,7 @@ class GraphCache:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        with _CAPTURE:
+        with _CAPTURE, _collector_paused():
             before = _counted()
             try:
                 # thread_local: serving threads may replay other graphs and

@@ -20,9 +20,12 @@ bfloat16 stored as float32, and ``meta.json``.  A checkpoint written by
 either package restores into the other.
 
 ``restore`` writes into the caller's model and optimizer state in place
-(no ``data_ptr`` moves).  The reference's ``shardings=`` (re-sharding
-under a JAX mesh) comes with the sharding specs of Queue 1 item 9c and is
-left out here.
+(no ``data_ptr`` moves).  Its ``shardings=(param specs, optimizer specs)``,
+spec trees of ``distributed.sharding`` for ``mesh`` (by default the one
+card's), take the place of the reference's re-sharding under a JAX mesh:
+each spec is held to its stacked leaf (``ValueError`` naming the leaf) and
+a mesh of more than one card is refused (``NotImplementedError``); on one
+card the placement is the identity.
 """
 from __future__ import annotations
 
@@ -34,6 +37,12 @@ import threading
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import (
+    check_specs,
+    one_card_mesh,
+    require_one_card,
+    stacked_shapes,
+)
 from repro_torch.models.transformer import leaf_of, tree_of
 from repro_torch.optim.adamw import named_tensors
 
@@ -146,10 +155,20 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, params, opt_state: dict, *, step: int | None = None):
+    def restore(self, params, opt_state: dict, *, step: int | None = None,
+                shardings=None, mesh=None):
         """Returns (step, params, opt_state, extra), the weights and the
         optimizer state written in place from checkpoint ``step`` (the
-        latest by default)."""
+        latest by default).  ``shardings``: see the module's docstring."""
+        if shardings is not None:
+            on = one_card_mesh() if mesh is None else mesh
+            pspecs, ospecs = shardings
+            check_specs(stacked_shapes(named_tensors(params).items()), pspecs,
+                        on, "params")
+            check_specs({"m": stacked_shapes(opt_state["m"].items()),
+                         "v": stacked_shapes(opt_state["v"].items()),
+                         "step": opt_state["step"]}, ospecs, on, "opt_state")
+            require_one_card(on, "shardings")
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")

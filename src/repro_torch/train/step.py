@@ -13,15 +13,25 @@ microbatch's gradient into f32 zeros inside its scan (:70-83); summing the
 microbatches in ``.grad`` would add them in bfloat16.  The AdamW update then
 writes the weights and the moments in place (``optim.adamw``).
 
-Left out of ``make_train_step``'s signature: ``grad_specs`` (a GSPMD
-sharding constraint on the accumulator, with the sharding specs of Queue 1
-item 9c) and ``unroll`` (a ``lax.scan`` detail; the port's loops are
-Python's).
+``grad_specs`` is the reference's sharding constraint on the gradient
+accumulator, a spec tree of ``distributed.sharding`` (``param_specs``) for
+``mesh`` (by default the one card's): the first step holds each spec to its
+stacked leaf on the mesh (``ValueError`` naming the leaf) and refuses a mesh
+of more than one card (``NotImplementedError``); on one card the constraint
+is the identity, as ``with_sharding_constraint`` is on one device.  Left
+out of the signature: ``unroll`` (a ``lax.scan`` detail; the port's loops
+are Python's).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import (
+    check_specs,
+    one_card_mesh,
+    require_one_card,
+    stacked_shapes,
+)
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.transformer import LM, forward
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
@@ -55,7 +65,7 @@ def microbatch_plan(cfg: ArchConfig, seq_len: int, global_batch: int,
 
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, n_micro: int,
                     q_chunk: int = 0, remat: bool = True,
-                    has_enc: bool = False):
+                    has_enc: bool = False, grad_specs=None, mesh=None):
     """Returns step(model, opt_state, batch) -> (model, opt_state, metrics).
 
     ``batch["tokens"]`` / ``["labels"]``: int [n_micro, B_mb, S]; with
@@ -63,10 +73,18 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, n_micro: int,
     whisper stub).  The step turns the model's weights trainable and
     updates them and ``opt_state`` in place; ``metrics`` holds ``loss``,
     ``grad_norm`` and ``lr``, float32 tensors on the model's device (no
-    host sync in the step).
+    host sync in the step).  ``grad_specs`` / ``mesh``: see the module's
+    docstring.
     """
+    unchecked = [grad_specs is not None]
 
     def step(model: LM, opt_state: dict, batch: dict):
+        if unchecked[0]:
+            on = one_card_mesh() if mesh is None else mesh
+            check_specs(stacked_shapes(model.named_parameters()), grad_specs,
+                        on, "grad_specs")
+            require_one_card(on, "grad_specs")
+            unchecked[0] = False
         model.trainable_(True)
         names, weights = zip(*model.named_parameters())
         grads = None

@@ -16,7 +16,10 @@ The redesigned kernels are also held at their geometry's edges:
 ``decode_attn`` at kv_len on and beside its tile and span edges for G 1-48
 and D 16-256, at the LM families' decode shapes (D 256, G 16, G 6, G 1
 over whisper's 1500-row encoder cache), and under each family's decode
-step (kernel against twin and CPU, exact launches), ``classify_fused`` on the conformance draws (drawn with the
+step (kernel against twin and CPU, exact launches), its ``mxu_native``
+variant (P in bf16) within ``mxu_bound`` of its plain version, unlike the
+default kernel, and in f32 the default kernel bit for bit,
+``classify_fused`` on the conformance draws (drawn with the
 port's own models) and on blocks of one, all, an empty and an out-of-range
 version, the four staged kernels at B 1, B just past a block's packets,
 T 1, 3 and 33, H 1 and 16, L 13, P 1 and 9, C 33, and ``tcam_match`` on
@@ -26,7 +29,8 @@ launches of both in flight together.  The graph cache (one captured CUDA
 graph per admission bucket): replay against eager and the twin on the 204
 draws in three modes, with exact launches per replay; install, evict and
 swap between replays in place; two threads replaying at once; a capture
-that fails raises and keeps no entry.  The fleet (``FleetRuntime`` on its
+that fails raises and keeps no entry; a capture completes while garbage
+cycles hold other graphs and the collector runs at every allocation.  The fleet (``FleetRuntime`` on its
 hop pool): the 8 fault-lane deployments replayed against eager and the
 twin with exact launches, a retarget to another hosting count between
 replays with no resident ``data_ptr`` moved, and a ``DeviceFailure`` raised
@@ -55,7 +59,11 @@ from repro_torch.data.conformance import N_CASES
 from repro_torch.kernels import ref, tiling
 from repro_torch.configs import smoke_config
 from repro_torch.kernels.classify_fused import classify_fused
-from repro_torch.kernels.decode_attn import decode_attn, decode_attn_plain
+from repro_torch.kernels.decode_attn import (
+    decode_attn,
+    decode_attn_plain,
+    mxu_bound,
+)
 from repro_torch.kernels.forest_vote import forest_vote, forest_vote_plain
 from repro_torch.kernels.svm_lookup import svm_lookup, svm_lookup_plain
 from repro_torch.kernels.tcam_match import tcam_match, tcam_match_plain
@@ -426,6 +434,27 @@ def test_decode_attn_kernel_matches_plain(cuda, B, Hq, Hkv, D, S, dtype):
     full = (B, Hq, Hkv, D, S) == ATTN_SWEEP[-1]
     torch.testing.assert_close(got.float(), decode_attn_plain(*ins).float(),
                                **(ATTN_TOL_FULL if full else ATTN_TOL)[dtype])
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,D,S", ATTN_SWEEP + [(4, 10, 1, 256, 2048)])
+def test_decode_attn_mxu_native_kernel_matches_plain(cuda, B, Hq, Hkv, D, S):
+    """``mxu_native`` (P in bf16 for P.V): one launch, within ``mxu_bound``
+    of the plain version (the reference's bf16 rounding of the normalised
+    P), and not the default kernel's output: the flag reaches the
+    kernel."""
+    ins = attn_case(cuda, B, Hq, Hkv, D, S, torch.bfloat16)
+    got, n = _launched(decode_attn,
+                       lambda: decode_attn(*ins, mxu_native=True))
+    assert n == 1 and got.dtype == torch.bfloat16
+    want = decode_attn_plain(*ins, mxu_native=True)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= mxu_bound(*ins, want)).all()), float(err.max())
+    assert not torch.equal(got, decode_attn(*ins))
+
+
+def test_decode_attn_mxu_native_is_the_default_kernel_in_f32(cuda):
+    ins = attn_case(cuda, 3, 8, 2, 64, 700, torch.float32)
+    assert torch.equal(decode_attn(*ins, mxu_native=True), decode_attn(*ins))
 
 
 def test_decode_attn_kv_len_zero_gives_zeros(cuda):
@@ -832,6 +861,47 @@ def test_failing_capture_raises_and_keeps_no_entry(cuda, monkeypatch):
     assert (zoo.classify(np.zeros((3, draws.N_FEATURES), np.int32), mid=0,
                          vid=0) == -1).all()
     assert zoo.cache_size() == 1
+
+
+def test_a_capture_survives_the_collector_freeing_another_graph(
+        cuda, monkeypatch):
+    """Garbage cycles that hold captured graphs (a dropped executor's
+    cache) and a collector that runs at every allocation: the capture of a
+    new entry still completes, since the cyclic collector is paused while
+    a graph is captured (destroying a graph on a capturing thread
+    invalidates the capture)."""
+    import gc
+
+    from repro_torch.runtime import executors
+
+    x = torch.zeros(8, device=cuda)
+    graphs = []
+    for _ in range(2):        # one for the warm-up run, one for the capture
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            x.add_(1)
+        graphs.append(g)
+    del g
+    real = executors._classify_impl
+
+    def dropping(packed, pb, **kw):
+        if graphs:
+            cycle = [graphs.pop()]
+            cycle.append(cycle)
+            del cycle
+        return real(packed, pb, **kw)
+
+    zoo = ZooServer(draws.profile(1))
+    monkeypatch.setattr(executors, "_classify_impl", dropping)
+    old = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        out = zoo.classify(np.zeros((5, draws.N_FEATURES), np.int32), mid=0,
+                           vid=0)
+    finally:
+        gc.set_threshold(*old)
+    torch.cuda.synchronize()
+    assert (out == -1).all() and zoo.cache_size() == 1 and not graphs
 
 
 # ------------------------------------------------------ the fleet (slice 8)

@@ -38,7 +38,11 @@ from repro_torch import configs as tconfigs
 from repro_torch.kernels import launch as tlaunch
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.decode_attn import decode_attn, decode_attn_plain
+from repro_torch.kernels.decode_attn import (
+    decode_attn,
+    decode_attn_plain,
+    mxu_bound,
+)
 from repro_torch.launch import serve as tserve
 from repro_torch.models import attention as tattention
 from repro_torch.models import common as tcommon
@@ -241,13 +245,137 @@ def test_gqa_attention_matches_jax(kw):
     np.testing.assert_allclose(f32(got), f32(want), atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("kw", [dict(mxu_native=True)], ids=str)
-def test_decode_attention_refuses_what_is_not_ported(kw):
-    q = torch.zeros(1, 1, 2, 16)
-    kv = torch.zeros(1, 4, 1, 16)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9c"):
-        tattention.decode_attention(q, kv, kv, torch.ones(1, dtype=torch.int32),
-                                    **kw)
+# ------------------------------------------------- attn_mxu_native decode
+# bf16 shapes (B, Hq, Hkv, D, S): the sweep's, whisper's G 1 and
+# recurrentgemma's D 256
+MXU_SWEEP = [(2, 4, 4, 16, 33), (3, 8, 2, 32, 128), (1, 16, 8, 64, 700),
+             (4, 6, 6, 64, 96), (2, 10, 1, 256, 300)]
+EXACT = {"xla_allow_excess_precision": False}
+
+
+@functools.lru_cache(maxsize=None)
+def _mxu_case(i):
+    """bf16 inputs and the reference's ``decode_attention(...,
+    mxu_native=True)``, compiled with XLA's excess precision off: with it
+    on, XLA keeps P in f32 across the cast and the reference's bf16
+    rounding of P vanishes."""
+    B, Hq, Hkv, D, S = MXU_SWEEP[i]
+    rng = np.random.default_rng(300 + i)
+    q, k, v = (rng.normal(size=s).astype(np.float32)
+               for s in ((B, 1, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    kvl = rng.integers(1, S + 1, (B,)).astype(np.int32)
+    kvl[0], kvl[-1] = 1, S
+    jin = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)] + [
+        jnp.asarray(kvl)]
+    want = jax.jit(lambda *a: jattention.decode_attention(
+        *a, mxu_native=True)).lower(*jin).compile(
+            compiler_options=EXACT)(*jin)
+    ins = tuple(to_torch(x, torch.bfloat16) for x in (q, k, v)) + (
+        torch.from_numpy(kvl),)
+    return ins, f32(want)
+
+
+def _mxu_gap(got, want, ins):
+    """(max |got - want| over ``mxu_bound``, the share of elements that
+    differ at all)."""
+    q, k, v, n = ins
+    w = torch.from_numpy(np.asarray(want, np.float32))
+    bound = mxu_bound(q[:, 0], k, v, n, w)
+    err = (got.float() - w).abs()
+    return float((err / bound).max()), float((err > 0).float().mean())
+
+
+# Bound (twin against the reference, bf16): ``mxu_bound`` (one bf16 ulp
+# of the reference's output plus 2^-7 sum_t P_t |V_t|) everywhere, and at
+# most 1% of the elements differing at all.  Both normalise the f32
+# softmax, round P to bf16 and accumulate P.V in f32; they differ only in
+# the order of f32 sums, which moves an element across a bf16 rounding
+# boundary now and then (0-0.7% of the elements here).  The default
+# attention (P kept in f32) differs in 19-41% of the elements and must fail
+# it.
+MXU_SHARE = 0.01
+MXU_PORTS = {
+    "attention": lambda q, k, v, n: tattention.decode_attention(
+        q, k, v, n, mxu_native=True)[:, 0],
+    "twin": lambda q, k, v, n: tref.decode_attn(q[:, 0], k, v, n,
+                                                mxu_native=True),
+    "wrapper": lambda q, k, v, n: decode_attn(q[:, 0], k, v, n,
+                                              mxu_native=True),
+    "ops_ref": lambda q, k, v, n: tops.decode_attn(
+        q[:, 0], k, v, n, mxu_native=True, mode="ref"),
+}
+
+
+@pytest.mark.parametrize("fn", sorted(MXU_PORTS))
+@pytest.mark.parametrize("case", range(len(MXU_SWEEP)))
+def test_decode_attention_mxu_native_matches_jax(case, fn):
+    ins, want = _mxu_case(case)
+    before = decode_attn.launches
+    got = MXU_PORTS[fn](*ins)
+    assert decode_attn.launches == before
+    assert got.dtype == torch.bfloat16
+    over, share = _mxu_gap(got, want[:, 0], ins)
+    assert over <= 1.0 and share <= MXU_SHARE, (over, share)
+
+
+@pytest.mark.parametrize("case", range(len(MXU_SWEEP)))
+def test_the_mxu_native_bound_refuses_the_default_attention(case):
+    """The control: the same inputs through the default attention (P in
+    f32) fail the bound the mxu_native twin meets."""
+    ins, want = _mxu_case(case)
+    over, share = _mxu_gap(tattention.decode_attention(*ins)[:, 0],
+                           want[:, 0], ins)
+    assert share > MXU_SHARE, (over, share)
+
+
+@pytest.mark.parametrize("fn", ["attention", "twin", "wrapper"])
+def test_mxu_native_is_the_default_in_f32(fn):
+    """In f32 the reference's ``preferred_element_type`` and
+    ``astype(v.dtype)`` are no-ops: the port's mxu_native path is its
+    default path, bit for bit, and matches the reference's."""
+    (q, k, v, n), _ = _mxu_case(2)
+    q, k, v = q.float(), k.float(), v.float()
+    default = {"attention": lambda **kw: tattention.decode_attention(
+        q, k, v, n, **kw)[:, 0],
+        "twin": lambda **kw: tref.decode_attn(q[:, 0], k, v, n, **kw),
+        "wrapper": lambda **kw: decode_attn(q[:, 0], k, v, n, **kw)}[fn]
+    got = default(mxu_native=True)
+    assert torch.equal(got, default(mxu_native=False))
+    jin = [jnp.asarray(x.numpy()) for x in (q, k, v, n)]
+    want = f32(jattention.decode_attention(*jin, mxu_native=True))[:, 0]
+    np.testing.assert_allclose(f32(got), want, **ATTN_TOL["float32"])
+
+
+def test_decode_step_routes_attn_mxu_native(monkeypatch):
+    """``cfg.attn_mxu_native`` reaches every self-attention launch of
+    ``decode_step``; ten teacher-forced bf16 steps match the reference's
+    mxu_native decode (compiled with excess precision off) at the LM's bf16
+    bound."""
+    tree, toks, _, _ = _jax_lm("internlm2-1.8b", "bfloat16")
+    jc, tc = (c.scaled(attn_mxu_native=True)
+              for c in _cfgs("internlm2-1.8b", "bfloat16"))
+    params = jax.tree.map(jnp.asarray, tree)
+    jstep = jax.jit(lambda p, s, t, pos: j_decode_step(p, s, t, pos, jc))
+    jstate = j_init_decode_state(jc, B_LM, S_LM)
+    model = ttransformer.params_from_numpy(tree, tc, device=CPU)
+    state = ttransformer.init_decode_state(tc, B_LM, S_LM, device=CPU)
+    seen = []
+    real = tops.decode_attn
+
+    def spy(*a, mxu_native=False, **kw):
+        seen.append(mxu_native)
+        return real(*a, mxu_native=mxu_native, **kw)
+
+    monkeypatch.setattr(tops, "decode_attn", spy)
+    for t in range(S_LM):
+        tt = toks[:, t:t + 1]
+        args = (params, jstate, jnp.asarray(tt), jnp.int32(t))
+        want, jstate = jstep.lower(*args).compile(
+            compiler_options=EXACT)(*args)
+        got, state = ttransformer.decode_step(
+            model, state, torch.from_numpy(tt), t, tc)
+        np.testing.assert_allclose(f32(got), f32(want), **LM_TOL["bfloat16"])
+    assert seen == [True] * (S_LM * tc.n_layers)
 
 
 @pytest.mark.parametrize("window", [1, 4, 33])
