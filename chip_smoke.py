@@ -218,10 +218,23 @@ JAX package.  Phases, each fatal on failure:
              zeroed, the allocator's growth the dry run's
              ``analytic_bytes_per_device`` within its rounding per tensor.
 
-Each main path (5, 6, 7, 8, 11, 12, 13, 15, 16, 17) runs with every kernel's
-launch count set to 0 just before it and read just after; a kernel of the
-path that never launched fails the run, and so does any launch on phase
-16's path.  A replayed graph adds the launches its capture
+18. costs  — the dry run counted (``launch/dryrun.py``, each cell's real
+             step on ``meta`` DTensors over a fake process group,
+             ``analysis.cost.CostCounter``): the 40 one-pod cells and four
+             at two pods, in six processes, every status as
+             ``applicable`` says and every ``ok`` record's counted fields
+             filled; phase 16's full-width train step (counted on the card
+             in its warm-up step) and phase 9's decode step (B 16, kv_len
+             4096, counted after its timing) against the dry run's count of
+             the same step on a 1 x 1 mesh: the flops equal, the train
+             step's peak within 10% of the card's ``max_memory_allocated``,
+             24 ``decode_attn`` ops a decode step; each step's bound from
+             its counted flops and bytes beside its measured ms.
+
+Each main path (5, 6, 7, 8, 11, 12, 13, 15, 16, 17, and phase 18's
+counted decode step) runs with every kernel's launch count set to 0 just
+before it and read just after; a kernel of the path that never launched
+fails the run, and so does any launch on phase 16's path.  A replayed graph adds the launches its capture
 counted.  Output: a ``paths`` JSON line, a ``kernels`` JSON line (with
 ``launch_floor_ms``), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  ``--two-streams`` runs only phase 4's
@@ -1351,6 +1364,10 @@ def lm_timing(cfg, model, seed, torch, n_iter=50):
     step()
     torch.cuda.synchronize()
     step_s, windows, gcp = host_step_s(step, torch, 20)
+    zero_launches()
+    counted = counted_step(step, [model, state, tok], torch)
+    counted["launches"] = launches()
+    del counted["result"]
 
     q = torch.randn(B, cfg.n_heads, cfg.hd, generator=gen,
                     device=device).to(cfg.tdtype)
@@ -1381,7 +1398,9 @@ def lm_timing(cfg, model, seed, torch, n_iter=50):
           f"{100 * busy_us / (step_s * 1e6):.1f}% of the unprofiled step")
     del state
     torch.cuda.empty_cache()
-    return a, am, B / step_s
+    counted.update(step_ms=step_s * 1e3, analytic_bytes=step_bytes,
+                   analytic_flops=step_flops, bound_ms=step_bound)
+    return a, am, B / step_s, counted
 
 
 def attn_timing(name, ins, torch, cyc, n_iter=50, mxu=False):
@@ -3889,17 +3908,23 @@ def train_full_width(seed, device):
     losses, times = [], []
     for s in range(1 + TRAIN_TIMED):
         batch = next_batch(run)
+        torch.cuda.synchronize()
         if s == 0:
             first = batch
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, _, m = run.step(run.model, run.opt, batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+            counted = counted_step(lambda: run.step(run.model, run.opt,
+                                                    batch),
+                                   [run.model, run.opt, batch], torch)
+            m = counted.pop("result")[2]
+            times.append(counted["seconds"])
+        else:
+            t0 = time.perf_counter()
+            _, _, m = run.step(run.model, run.opt, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
         print(f"  step {s + 1}: loss {losses[-1]:.5f}, grad_norm "
               f"{float(m['grad_norm']):.4f}, lr {float(m['lr']):.3g}, "
-              f"{times[-1] * 1e3:.1f} ms{' (warm-up)' if s == 0 else ''}")
+              f"{times[-1] * 1e3:.1f} ms{' (warm-up, counted)' if s == 0 else ''}")
     peak = torch.cuda.max_memory_allocated()
     again = batch_loss(run, first)
     print(f"  the stream's loss from step 1 to {1 + TRAIN_TIMED}: "
@@ -3926,7 +3951,9 @@ def train_full_width(seed, device):
                step_ms_all=[t * 1e3 for t in times],
                tokens_per_s=tokens / step_ms * 1e3, bound_ms=bound_ms,
                model_flops=flops, mfu=bound_ms / step_ms, peak_bytes=peak,
-               profiled=prof, optimizer_ms=opt_ms)
+               profiled=prof, optimizer_ms=opt_ms,
+               counted=dict(counted, n_micro=run.n_micro,
+                            state_dtype=run.ocfg.state_dtype))
     del run
     gc.collect()
     torch.cuda.empty_cache()
@@ -4273,7 +4300,7 @@ def mesh_phase(device):
     n = {"ok": 0, "skip": 0}
     for arch, shape in all_cells():
         for mp in (False, True):
-            rec = dryrun.run_cell(arch, shape, multi_pod=mp)
+            rec = dryrun.run_cell(arch, shape, multi_pod=mp, count=False)
             ok, why = applicable(get_config(arch), shape)
             want = "ok" if ok else "skip"
             if rec["status"] != want or (ok and not rec["fits"]) or (
@@ -4382,7 +4409,8 @@ def acorn_and_dense(seed, prof, device, libs, main_path, path_launches,
     t, rps, steps, writes = timing_phase(
         zoos, runtimes, eager_zoos, eager_runtimes, pb, prof, models, torch)
     del eager_zoos, eager_runtimes
-    t["decode_attn"], t[MXU], step_tok_s = lm_timing(cfg, lm, seed, torch)
+    t["decode_attn"], t[MXU], step_tok_s, t["lm_step_counted"] = lm_timing(
+        cfg, lm, seed, torch)
     stamp("decode step timed")
     wide = attn_shapes_timing(seed, torch)
     stamp("attention shapes timed")
@@ -4415,6 +4443,178 @@ def acorn_and_dense(seed, prof, device, libs, main_path, path_launches,
              "fleet": fleet, "lanes": lanes, "examples_seconds": examples,
              "lm_decode": served}
     return paths, wide, t, cfg.dtype
+
+
+# ------------------------------------------- phase 18: the dry run's costs
+# the cells also counted at two pods: the ones tests/test_torch_dryrun_mesh.py
+# holds to the reference
+COST_CELLS_2POD = (("internlm2-1.8b", "decode_32k"),
+                   ("internlm2-1.8b", "prefill_32k"),
+                   ("qwen3-moe-235b-a22b", "decode_32k"),
+                   ("rwkv6-7b", "long_500k"))
+COST_WORKERS = 6                 # processes counting cells at once
+PEAK_TOL = 0.10                  # the counted peak against the card's
+
+
+def counted_step(run, args, torch) -> dict:
+    """``run()`` once on the card under an ``analysis.cost.CostCounter``
+    with ``args`` (the step's arguments) tracked: its counted flops,
+    bytes, ops and peak, the card's ``max_memory_allocated`` over it less
+    what was allocated beside the arguments, its seconds and its result."""
+    from repro_torch.analysis.cost import CostCounter
+
+    counter = CostCounter()
+    torch.cuda.synchronize()
+    held = counter.track(args)
+    beside = torch.cuda.memory_allocated() - held
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with counter:
+        result = run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return dict(result=result, seconds=seconds, flops=counter.matmul_flops,
+                bytes=counter.traffic_bytes, ops=dict(counter.ops),
+                counted_peak=counter.peak_bytes,
+                card_peak=torch.cuda.max_memory_allocated() - beside,
+                argument_bytes=held)
+
+
+def _count_cell(cell):
+    """One cell's counted record (a worker process of phase 18)."""
+    from repro_torch.launch import dryrun
+
+    arch, shape, mp, out = cell
+    return dryrun.run_cell(arch, shape, multi_pod=mp, out_dir=out)
+
+
+def cost_cells(card: str):
+    """Phase 18 (a): the 40 one-pod cells and ``COST_CELLS_2POD`` at two
+    pods, counted in ``COST_WORKERS`` processes: every status the one
+    ``applicable`` gives, every ``ok`` record's counted fields filled and
+    ``hlo_*_raw`` null with the reason."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.configs import all_cells, applicable, get_config
+    from repro_torch.launch import dryrun
+
+    out = str(Path(dryrun.RESULTS_DIR) / "phase18")
+    cells = [(a, s, False, out) for a, s in all_cells()] + [
+        (a, s, True, out) for a, s in COST_CELLS_2POD]
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            COST_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        recs = list(pool.map(_count_cell, cells))
+    n = {"ok": 0, "skip": 0}
+    for rec in recs:
+        ok, why = applicable(get_config(rec["arch"]), rec["shape"])
+        want = "ok" if ok else "skip"
+        if rec["status"] != want:
+            raise AssertionError(f"dry run {rec['arch']} {rec['shape']} "
+                                 f"{rec['pods']} pod: {rec['status']} "
+                                 f"({rec.get('error', rec.get('reason'))})")
+        n[want] += 1
+        if not ok:
+            continue
+        empty = [k for k in dryrun.COUNTED_FIELDS
+                 if (rec[k] is None) != k.endswith("_raw")]
+        if empty or rec["not_available"]["reason"] != dryrun.NOT_AVAILABLE:
+            raise AssertionError(f"{rec['arch']} {rec['shape']}: fields "
+                                 f"{empty} not as they should be")
+        rl, mem = rec["roofline"], rec["memory"]
+        print(f"  {rec['arch']:20s} {rec['shape']:12s} {rec['pods']} pod: "
+              f"{rec['hlo_flops_per_device']:.4g} flops, "
+              f"{rec['hlo_bytes_per_device']:.4g} bytes, "
+              f"{rec['collective_wire_bytes']:.4g} wire bytes, peak "
+              f"{mem['peak_bytes'] / 1e9:.2f} GB a device; bound "
+              f"{rl['step_s_lower_bound'] * 1e3:.3f} ms ({rl['dominant']}); "
+              f"useful {rec['useful_flops_ratio']:.3f} [{card}]")
+    seconds = time.perf_counter() - t0
+    print(f"dry run counted: {n['ok']} cells ok, {n['skip']} skipped, in "
+          f"{seconds:.1f} s on {COST_WORKERS} processes (records in "
+          f"{out})")
+    return {"ok": n["ok"], "skip": n["skip"], "seconds": seconds}
+
+
+def cost_phase(paths, t, card):
+    """Phase 18: the dry run's counted cells (``cost_cells``); then phase
+    16's full-width training step and phase 9's decode step as counted on
+    the card held to the dry run's count of the same step on a 1 x 1 mesh
+    on ``meta``: the flops equal, the train step's peak within
+    ``PEAK_TOL`` of the card's, 24 ``decode_attn`` ops a decode step (and
+    24 launches: phase 18's own in the ``kernels`` line); each step's
+    bound from its counted flops and bytes beside its measured ms."""
+    from repro_torch.analysis import HW
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    out = {"cells": cost_cells(card)}
+    one = make_mesh((1, 1), ("data", "model"))
+    hw = HW()
+    tr = paths["train"]["full_width"]
+    c = tr["counted"]
+    cfg = get_config(TRAIN_ARCH)
+    meta = dryrun.count_step(cfg, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH,
+                                            "train"), one,
+                             n_micro=c["n_micro"],
+                             overrides={"state_dtype": c["state_dtype"]})
+    peak = meta["memory"]["peak_bytes"]
+    bound = max(c["flops"] / hw.peak_flops, c["bytes"] / hw.hbm_gbps) * 1e3
+    print(f"{TRAIN_ARCH} train step (phase 16, seq {TRAIN_SEQ}, global batch "
+          f"{TRAIN_BATCH}, n_micro {c['n_micro']}), counted on the card: "
+          f"{c['flops']:.6g} flops (dry run on meta {meta['flops']:.6g}), "
+          f"{c['bytes']:.6g} bytes (dry run {meta['bytes']:.6g}); peak: dry "
+          f"run {peak / 1e9:.3f} GB, the card's max_memory_allocated "
+          f"{c['card_peak'] / 1e9:.3f} GB ({peak / c['card_peak']:.3f}); "
+          f"bound {bound:.1f} ms (compute "
+          f"{c['flops'] / hw.peak_flops * 1e3:.1f}, memory "
+          f"{c['bytes'] / hw.hbm_gbps * 1e3:.1f}) against the measured "
+          f"{tr['step_ms']:.1f} ms [{card}]")
+    if c["flops"] != meta["flops"]:
+        raise AssertionError(f"train step flops: card {c['flops']} != dry "
+                             f"run {meta['flops']}")
+    if abs(peak - c["card_peak"]) > PEAK_TOL * c["card_peak"]:
+        raise AssertionError(f"train step peak: dry run {peak}, card "
+                             f"{c['card_peak']}")
+    out["train"] = dict(flops=c["flops"], bytes=c["bytes"],
+                        meta_bytes=meta["bytes"], meta_peak=peak,
+                        card_peak=c["card_peak"],
+                        counted_peak=c["counted_peak"], bound_ms=bound,
+                        step_ms=tr["step_ms"])
+    d = t["lm_step_counted"]
+    B, T = LM_SERVE["batch"], LM_CACHE
+    meta = dryrun.count_step(get_config(LM_ARCH),
+                             ShapeSpec("decode", T, B, "decode"), one)
+    ops = d["ops"].get("decode_attn", 0)
+    bound = max(d["flops"] / hw.peak_flops, d["bytes"] / hw.hbm_gbps) * 1e3
+    print(f"{LM_ARCH} decode step (phase 9, B {B}, kv_len {T}), counted on "
+          f"the card: {ops} decode_attn ops ({d['launches']['decode_attn']} "
+          f"launches), {d['flops']:.6g} flops (dry run "
+          f"on meta {meta['flops']:.6g}, {meta['decode_attn_ops']} "
+          f"decode_attn ops), {d['bytes']:.6g} bytes against the phase's "
+          f"analytic {d['analytic_bytes']:.6g} "
+          f"({d['bytes'] / d['analytic_bytes']:.3f}); bound from the counts "
+          f"{bound:.4f} ms, from the analytic bytes {d['bound_ms']:.4f} ms, "
+          f"measured {d['step_ms']:.3f} ms [{card}]")
+    if ops != 24 or meta["decode_attn_ops"] != 24 or d["launches"][
+            "decode_attn"] != 24:
+        raise AssertionError(f"decode step: {ops} / "
+                             f"{meta['decode_attn_ops']} decode_attn ops")
+    if d["flops"] != meta["flops"]:
+        raise AssertionError(f"decode step flops: card {d['flops']} != dry "
+                             f"run {meta['flops']}")
+    out["decode"] = dict(flops=d["flops"], bytes=d["bytes"],
+                         analytic_bytes=d["analytic_bytes"],
+                         ratio=d["bytes"] / d["analytic_bytes"],
+                         bound_ms=bound, analytic_bound_ms=d["bound_ms"],
+                         step_ms=d["step_ms"], decode_attn_ops=ops)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 18 took {out['seconds']:.1f} s")
+    return out
 
 
 def kernels_line(t, path_launches, lm_dtype) -> dict:
@@ -4553,12 +4753,21 @@ def main(argv=None) -> int:
               "at full width; the dry run's 80 cells and device (0, 0) of "
               "the production mesh held on this card")
         paths["mxu_native"] = mxu_phase(args.seed, device, main_path)
-    if only:
-        kernel_resources(libs)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
+    if not only:
+        phase("18 the dry run's costs: its cells counted; phase 16's train "
+              "step and phase 9's decode step counted on the card against "
+              "the dry run's count on meta")
+        paths["costs"] = cost_phase(paths, t, smi[0] if smi else "card ?")
+        # the counted decode step's launches (phase 9, counts zeroed just
+        # before it and read just after)
+        path_launches["costs"] = t["lm_step_counted"]["launches"]
+        print(f"main path costs: launches {path_launches['costs']}")
+    if only:
+        kernel_resources(libs)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"paths": paths, "decode_attn_shapes": {
         k: {x: a[x] for x in ("ms", "plain_ms", "bound_ms", "library_ms",

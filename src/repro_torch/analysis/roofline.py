@@ -13,16 +13,21 @@ that one ``HW`` serves both packages' arithmetic: ``ici_gbps`` holds the
 NVLink rate, the link between cards in place of the TPU's ICI link, and
 ``dcn_gbps`` the host's network port.
 
-Not ported: ``collective_bytes_from_hlo`` (it parses XLA's HLO text, which
-torch does not produce); a caller of the port counts its bytes and flops
-itself (``chip_smoke.py`` counts the weights, caches and state a decode step
-reads).
+``collective_bytes`` is the counterpart of ``collective_bytes_from_hlo``
+(:69): it takes the collectives a cost counter saw
+(``analysis.cost.CostCounter.collectives``: kind, result bytes, group
+size) where the reference parses them from XLA's HLO text, and applies the
+reference's ring factors over the group (:80-92):
+
+    all-reduce      2 (n-1)/n        all-gather     (n-1)/n
+    reduce-scatter  (n-1)/n          all-to-all     (n-1)/n
+    collective-permute  1
 """
 from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["HW", "roofline_terms", "model_flops"]
+__all__ = ["HW", "collective_bytes", "roofline_terms", "model_flops"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +46,31 @@ class HW:
     dcn_gbps: float = 50e9
     # HBM3 capacity
     hbm_bytes: float = 80e9
+
+
+def collective_bytes(records) -> dict:
+    """Wire bytes per collective kind of (kind, result bytes, group size)
+    records, the dict ``collective_bytes_from_hlo`` returns: the five kinds,
+    ``n_ops`` and ``total``.  A record of 0 bytes is skipped, as there, and
+    so is one over a group of one card (the reference reads its groups from
+    the HLO and takes 2 where it finds none; here every group is known)."""
+    out = {"all-reduce": 0.0, "all-gather": 0.0, "reduce-scatter": 0.0,
+           "all-to-all": 0.0, "collective-permute": 0.0, "n_ops": 0}
+    for kind, size, n in records:
+        if size == 0 or n == 1:      # a group of one moves nothing
+            continue
+        if kind == "all-reduce":
+            wire = 2.0 * size * (n - 1) / n
+        elif kind in ("all-gather", "reduce-scatter", "all-to-all"):
+            wire = size * (n - 1) / n
+        elif kind == "collective-permute":
+            wire = float(size)
+        else:
+            raise ValueError(f"unknown collective kind {kind!r}")
+        out[kind] += wire
+        out["n_ops"] += 1
+    out["total"] = sum(v for k, v in out.items() if k not in ("n_ops", "total"))
+    return out
 
 
 def model_flops(cfg, seq_len: int, global_batch: int, kind: str) -> float:

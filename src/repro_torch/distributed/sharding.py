@@ -30,7 +30,13 @@ tensors, from the port's parameter names through ``tree_path``.
 
 The port runs on one card.  ``check_specs`` holds a spec tree to its
 leaves on a mesh; ``require_one_card`` refuses a mesh of more than one card
-(ROADMAP.md Queue 1 item 12) instead of ignoring its specs.
+(ROADMAP.md Queue 1 item 12) instead of ignoring its specs, unless the mesh
+is a torch ``DeviceMesh`` over a fake process group
+(``launch.mesh.fake_device_mesh``): there the specs lay tensors out as
+DTensors for the dry run.  ``placements`` turns a spec into DTensor
+placements; ``distribute_model`` and ``distribute_named`` lay the port's
+per-layer tensors out by the stacked tree's specs, ``distribute`` one
+stacked leaf.
 """
 from __future__ import annotations
 
@@ -41,7 +47,9 @@ from repro_torch.models.common import ArchConfig
 
 __all__ = ["param_specs", "opt_specs", "state_specs", "batch_spec", "dp_axes",
            "stacked_shapes", "tree_leaves", "shard_shape",
-           "check_specs", "one_card_mesh", "require_one_card"]
+           "check_specs", "one_card_mesh", "require_one_card", "as_mesh",
+           "placements", "distribute", "distribute_named",
+           "distribute_model", "local_bytes"]
 
 # weight name -> which logical axis gets "model": "col" shards the last axis,
 # "row" shards the second-to-last.
@@ -236,9 +244,21 @@ def _axes(entry) -> tuple[str, ...]:
     return entry if isinstance(entry, tuple) else (entry,)
 
 
+def as_mesh(mesh) -> Mesh:
+    """The port's mesh description of ``mesh``: itself, or a torch
+    ``DeviceMesh``'s shape and axis names."""
+    if isinstance(mesh, Mesh):
+        return mesh
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is None:
+        return mesh        # anything with axis_names and devices
+    return make_mesh(tuple(mesh.shape), tuple(names))
+
+
 def shard_shape(shape, spec, mesh) -> tuple[int, ...]:
     """One card's shard of a leaf of ``shape``: each axis divided by the
     sizes of the mesh axes its spec entry names (``check_specs`` first)."""
+    mesh = as_mesh(mesh)
     sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
     out = list(shape)
     for i, entry in enumerate(spec):
@@ -253,6 +273,7 @@ def check_specs(tree, specs, mesh, what: str = "") -> None:
     each spec fits its leaf on ``mesh``: no more entries than the leaf has
     axes, only the mesh's axis names, no axis twice, and every axis divided
     by the sizes of the mesh axes named for it."""
+    mesh = as_mesh(mesh)
     sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
     spec_of = dict(tree_leaves(specs))
     for path, leaf in tree_leaves(tree):
@@ -289,11 +310,106 @@ def one_card_mesh() -> Mesh:
 
 def require_one_card(mesh, what: str) -> None:
     """Raise ``NotImplementedError`` for a mesh of more than one card: the
-    port lays no tensor out across cards (ROADMAP.md Queue 1 item 12); on
-    one card a spec's sharding constraint is the identity."""
+    port lays no tensor out across real cards (ROADMAP.md Queue 1 item
+    12); on one card a spec's sharding constraint is the identity.  A
+    ``DeviceMesh`` over a fake process group passes: its DTensors run one
+    device's share of the work, with no data moved."""
+    from repro_torch.launch.mesh import is_fake_mesh
+
+    if not isinstance(mesh, Mesh) and hasattr(mesh, "mesh_dim_names") and \
+            is_fake_mesh(mesh):
+        return
+    mesh = as_mesh(mesh)
     n = mesh_chip_count(mesh)
     if n > 1:
         raise NotImplementedError(
             f"{what} on a mesh of {n} cards {dict(zip(mesh.axis_names, mesh.devices.shape))}: "
             "the port runs on one card (ROADMAP.md Queue 1 item 12, "
             "multi-card layouts)")
+
+
+# ------------------------------------------------------------- DTensors
+def placements(spec: tuple, mesh) -> list:
+    """DTensor placements of a leaf with ``spec`` on ``mesh`` (a torch
+    ``DeviceMesh`` or the port's ``Mesh``): ``Shard(i)`` on each mesh axis
+    the spec names for tensor axis i, ``Replicate()`` on the others.  An
+    entry of two axes shards one tensor axis over both mesh axes, the first
+    named the major, as the reference's ``PartitionSpec`` does; they must
+    come in the mesh's order."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(as_mesh(mesh).axis_names)
+    out = [Replicate() for _ in names]
+    for i, entry in enumerate(spec):
+        axes = _axes(entry)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry!r} names mesh axes out of "
+                             f"the mesh's order {tuple(names)}")
+        for j in idx:
+            out[j] = Shard(i)
+    return out
+
+
+def distribute(t: torch.Tensor, spec: tuple, device_mesh):
+    """``t`` (the whole tensor on this process) as a DTensor laid out by
+    ``spec`` on ``device_mesh``: this rank keeps its own shard, and no
+    data moves."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t.detach(), device_mesh,
+                             placements(spec, device_mesh),
+                             src_data_rank=None)
+
+
+def _layer_spec(name: str, spec_of: dict) -> tuple:
+    """The spec of one layer's tensor ``name`` (a parameter's name in the
+    port) from its stacked leaf's spec, whose leading layer axis must not
+    be split."""
+    from repro_torch.models.transformer import tree_path
+
+    path, layer = tree_path(name)
+    if path not in spec_of:
+        raise ValueError(f"{name}: no spec for leaf {'/'.join(path)}")
+    spec = spec_of[path]
+    if layer is None:
+        return spec
+    if spec and spec[0] is not None:
+        raise ValueError(f"{name}: spec {spec} splits the stacked layer "
+                         "axis of its leaf")
+    return tuple(spec[1:])
+
+
+def distribute_named(named: dict, specs: dict, device_mesh) -> dict:
+    """name -> DTensor of tensors keyed like the port's parameters (the
+    optimizer's moments), each laid out by its stacked leaf's spec."""
+    spec_of = dict(tree_leaves(specs))
+    return {n: distribute(t, _layer_spec(n, spec_of), device_mesh)
+            for n, t in named.items()}
+
+
+def distribute_model(model, specs: dict, device_mesh):
+    """Lay the port's per-layer parameters out by the stacked tree's
+    ``specs`` (``param_specs``) on ``device_mesh``, in place: each
+    parameter becomes a DTensor parameter holding this rank's shard
+    (``requires_grad`` kept).  Returns the model."""
+    check_specs(stacked_shapes(model.named_parameters()), specs,
+                device_mesh, "params")
+    spec_of = dict(tree_leaves(specs))
+    for name, p in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        dt = distribute(p, _layer_spec(name, spec_of), device_mesh)
+        setattr(mod, leaf, torch.nn.Parameter(
+            dt, requires_grad=p.requires_grad))
+    return model
+
+
+def local_bytes(tensors) -> int:
+    """Bytes of this rank's shards of ``tensors`` (an iterable of tensors
+    and DTensors)."""
+    total = 0
+    for t in tensors:
+        local = getattr(t, "_local_tensor", t)
+        total += local.numel() * local.element_size()
+    return total

@@ -17,6 +17,9 @@ ring, tensor cores in bf16).  This module holds:
   operands, the twin ``ref.decode_attn``.
 * ``mxu_bound`` — how far two bf16-P attentions (the ``mxu_native``
   kernel and its plain version) may differ, element by element.
+* ``work`` — one call's matmul flops and bytes, how a cost counter
+  (``analysis.cost``) counts the call: a ``ctypes`` launch is invisible to
+  a dispatch mode.
 * ``plan`` — the launch geometry: query rows a block, keys a ring stage,
   how the cache splits into spans, shared memory.  Plain Python, so the CPU
   tests check it.
@@ -36,6 +39,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.launch import check, current_stream, launch, on_card
 
 __all__ = ["decode_attn", "decode_attn_plain", "mxu_bound", "plan", "Plan",
+           "work",
            "HEAD_DIMS", "SOURCE"]
 
 SOURCE = "decode_attn"           # csrc/decode_attn.cu
@@ -133,6 +137,26 @@ def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
         c = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
                                          device=device)
     return c
+
+
+def work(q: torch.Tensor, k: torch.Tensor,
+         kv_len: torch.Tensor) -> tuple[float, float]:
+    """(matmul flops, bytes) of one call: QK and PV over each row's
+    ``kv_len`` cache rows, 4 * Hq * D a row, and q, the K and V rows read
+    and the output.  On fake or ``meta`` tensors ``kv_len``'s values are
+    unknown, and every row counts the whole cache (the dry run's decode
+    sits at the cache's last row, where that is exact); on real ones
+    reading them waits for the card."""
+    B, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    from torch._subclasses.fake_tensor import is_fake
+    if kv_len.device.type == "meta" or is_fake(kv_len):
+        rows = B * S
+    else:
+        rows = int(kv_len.clamp(0, S).sum())
+    esize = q.element_size()
+    return (4.0 * Hq * D * rows,
+            float(2 * q.numel() * esize + 2 * rows * Hkv * D * k.element_size()))
 
 
 def decode_attn_plain(q, k, v, kv_len, *, mxu_native=False):

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis import cost
 from repro_torch.kernels import decode_attn as _attn
 from repro_torch.kernels import forest_vote as _vote
 from repro_torch.kernels import ref, tiling
@@ -220,11 +221,15 @@ def decode_attn(q, k, v, kv_len, *, mxu_native: bool = False,
     """GQA decode attention, q [B, Hq, D] over the cache k/v
     [B, S, Hkv, D] masked to ``kv_len`` int32 [B]: ``"cuda"`` is the
     kernel wrapper (one launch on CUDA tensors), ``"ref"`` the twin;
-    ``None`` follows the device.  ``mxu_native``: P in bf16 for P.V."""
+    ``None`` follows the device.  ``mxu_native``: P in bf16 for P.V.
+    Under an ``analysis.cost.CostCounter`` the call is one op of its own
+    work (``kernels.decode_attn.work``), whichever runs."""
     m = resolve_mode(mode, q.device)
     if m not in _KERNEL_MODES:
         raise ValueError(f"decode_attn mode {mode!r}: one of None, "
                          f"{_KERNEL_MODES}")
-    if m == "ref":
-        return ref.decode_attn(q, k, v, kv_len, mxu_native=mxu_native)
-    return _attn.decode_attn(q, k, v, kv_len, mxu_native=mxu_native)
+    fn = ref.decode_attn if m == "ref" else _attn.decode_attn
+    if not cost.ACTIVE:
+        return fn(q, k, v, kv_len, mxu_native=mxu_native)
+    with cost.op("decode_attn", lambda: _attn.work(q, k, kv_len)):
+        return fn(q, k, v, kv_len, mxu_native=mxu_native)

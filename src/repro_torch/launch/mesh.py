@@ -17,14 +17,23 @@ its collectives cross the hosts' network between them; ``data`` runs
 across 16 such pairs of hosts.  The multi-pod mesh puts a ``pod`` axis of 2
 in front (512 cards).  No time, rate or size of this mesh is measured:
 the port runs on one card (``repro_torch.distributed.sharding``).
+
+``fake_device_mesh`` stands a mesh up as a torch ``DeviceMesh`` over a
+fake process group of its size in this one process, rank 0 being device
+(0, 0): DTensors laid out on it run each op as device (0, 0) would, and
+their collectives return at once, with no data (the dry run,
+``launch/dryrun.py``).  It is the counterpart of the reference's 512
+placeholder devices (``--xla_force_host_platform_device_count``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
 
-__all__ = ["Mesh", "make_mesh", "make_production_mesh", "mesh_chip_count"]
+__all__ = ["Mesh", "make_mesh", "make_production_mesh", "mesh_chip_count",
+           "fake_device_mesh", "is_fake_mesh"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -63,3 +72,37 @@ def mesh_chip_count(mesh) -> int:
     for s in mesh.devices.shape:
         n *= s
     return n
+
+
+@contextlib.contextmanager
+def fake_device_mesh(mesh: Mesh):
+    """A ``torch.distributed.device_mesh.DeviceMesh`` of ``mesh``'s shape
+    and axis names on the CPU, over a fake process group of
+    ``mesh_chip_count(mesh)`` ranks started for the ``with`` block, this
+    process being rank 0 (device (0, 0)); the group is destroyed on exit.
+    Raises ``RuntimeError`` if a default process group already exists: a
+    fake group never stands in for a real one."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a default process group already exists; the "
+                           "fake mesh needs this process to itself")
+    n = mesh_chip_count(mesh)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield DeviceMesh("cpu", torch.as_tensor(mesh.devices),
+                         mesh_dim_names=tuple(mesh.axis_names))
+    finally:
+        dist.destroy_process_group()
+
+
+def is_fake_mesh(device_mesh) -> bool:
+    """Whether a torch ``DeviceMesh`` runs over a fake process group
+    (``fake_device_mesh``)."""
+    import torch.distributed as dist
+
+    return dist.is_initialized() and dist.get_backend(
+        device_mesh.get_group(0)) == "fake"

@@ -25,11 +25,15 @@ does; the decode step always has ``kv_len >= 1``.  ``mxu_native`` (the
 reference's decode lever: bf16 operands, f32 accumulation, the softmax P
 cast to bf16 before P.V) runs the kernel's bf16-P variant, or the twin's;
 in f32 the reference's casts are no-ops, and the port runs its default.
+
+On DTensors (the dry run's sharded step) both hand each device's shard to
+``distributed.dtensor``, which runs the same code on it.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import dtensor as _dt
 from repro_torch.kernels import ops
 
 __all__ = ["gqa_attention", "decode_attention"]
@@ -60,6 +64,10 @@ def gqa_attention(
     q_chunk: int = 0,        # 0 = single-shot; >0 = loop over query chunks
     k_chunk: int = 0,        # >0 = online softmax over key chunks ("flash")
 ) -> torch.Tensor:
+    if _dt.is_dtensor(q):
+        return _dt.gqa_attention(gqa_attention, q, k, v, causal=causal,
+                                 window=window, q_offset=q_offset,
+                                 q_chunk=q_chunk, k_chunk=k_chunk)
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -127,6 +135,11 @@ def decode_attention(
     softmax P rounded to bf16 for P.V, f32 accumulation (a no-op in f32),
     as the reference's lever."""
     B, _, Hq, D = q.shape
-    out = ops.decode_attn(q.reshape(B, Hq, D), k_cache, v_cache, kv_len,
-                          mxu_native=mxu_native, mode=mode)
+    if _dt.is_dtensor(k_cache):
+        out = _dt.decode_attention(ops.decode_attn, q.reshape(B, Hq, D),
+                                   k_cache, v_cache, kv_len,
+                                   mxu_native=mxu_native, mode=mode)
+    else:
+        out = ops.decode_attn(q.reshape(B, Hq, D), k_cache, v_cache, kv_len,
+                              mxu_native=mxu_native, mode=mode)
     return out.reshape(B, 1, Hq, D)

@@ -18,13 +18,18 @@ then the token's k slots (``moe.py:30-33``).  Two conventions kept by hand:
 * ``jax.lax.top_k`` breaks ties toward the lower index, and ``torch.topk``
   promises no order among ties: the two agree only where the router's
   probabilities are distinct, which the parity tests' inputs are.
+
+On DTensors ``moe_ffn`` hands each device's tokens and experts to
+``distributed.dtensor.moe_ffn``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["moe_ffn", "router_dispatch", "check_impl"]
+from repro_torch.distributed import dtensor as _dt
+
+__all__ = ["moe_ffn", "router_dispatch", "dispatch_slots", "check_impl"]
 
 
 def _route(logits: torch.Tensor, top_k: int):
@@ -51,17 +56,31 @@ def router_dispatch(logits: torch.Tensor, top_k: int, capacity: int):
     whose slot >= capacity are dropped."""
     T, E = logits.shape
     probs, gate_vals, expert_idx = _route(logits, top_k)
+    dispatch, combine = dispatch_slots(expert_idx, gate_vals, E, capacity)
+    return dispatch, combine, _aux(probs, expert_idx)
+
+
+def dispatch_slots(expert_idx: torch.Tensor, gate_vals: torch.Tensor,
+                   E: int, capacity: int, first: int | None = None):
+    """Every token's experts int [T, k] -> (dispatch, combine) [T', E, C]
+    of the tokens whose gates ``gate_vals`` [T', k] are: all T (``first``
+    None), or the T' from row ``first`` on.  A token's slot in an expert
+    counts the tokens before it in the whole batch either way."""
+    T, top_k = expert_idx.shape
     onehot = F.one_hot(expert_idx, E).float()                 # [T, k, E]
     flat = onehot.reshape(T * top_k, E)
     pos_in_expert = (torch.cumsum(flat, dim=0) - flat).reshape(T, top_k, E)
     pos = (pos_in_expert * onehot).sum(-1)                    # [T, k]
+    if first is not None:
+        rows = slice(first, first + gate_vals.shape[0])
+        onehot, pos = onehot[rows], pos[rows]
     keep = (pos < capacity).float()
     pos_oh = F.one_hot(pos.long().clamp_max(capacity - 1),
                        capacity).float() * keep[..., None]
     disp_k = onehot[..., None] * pos_oh[:, :, None, :]
-    dispatch = disp_k.sum(dim=1)                              # [T, E, C]
+    dispatch = disp_k.sum(dim=1)                              # [T', E, C]
     combine = (disp_k * gate_vals[..., None, None]).sum(dim=1)
-    return dispatch, combine, _aux(probs, expert_idx)
+    return dispatch, combine
 
 
 def _experts(xe: torch.Tensor, params) -> torch.Tensor:
@@ -84,6 +103,9 @@ def moe_ffn(x: torch.Tensor, params, *, top_k: int, capacity_factor: float,
     [D, E] f32, wg/wu [E, D, F], wd [E, F, D].  Returns (y [B, S, D],
     aux)."""
     check_impl(impl)
+    if _dt.is_dtensor(x):
+        return _dt.moe_ffn(x, params, top_k=top_k,
+                           capacity_factor=capacity_factor, impl=impl)
     if impl == "sort":
         return _moe_ffn_sort(x, params, top_k=top_k,
                              capacity_factor=capacity_factor)

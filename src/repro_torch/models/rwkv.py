@@ -28,8 +28,12 @@ with ``[]``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import dtensor as _dt
 
 __all__ = ["time_mix", "time_mix_step", "channel_mix", "channel_mix_step"]
 
@@ -63,11 +67,14 @@ def _project(x, xprev, params, n_heads):
     m = _mix_inputs(x, xprev, params)
     B, S, D = x.shape
     K = D // n_heads
-    r = _mm(m["r"], params["wr"]).reshape(B, S, n_heads, K)
-    k = _mm(m["k"], params["wk"]).reshape(B, S, n_heads, K)
-    v = _mm(m["v"], params["wv"]).reshape(B, S, n_heads, K)
+    def heads(t):
+        return _dt.heads(t, n_heads).reshape(B, S, n_heads, K)
+
+    r = heads(_mm(m["r"], params["wr"]))
+    k = heads(_mm(m["k"], params["wk"]))
+    v = heads(_mm(m["v"], params["wv"]))
     g = F.silu(_mm(m["g"], params["wg"]))
-    logw = _decay(m["w"], params).reshape(B, S, n_heads, K)
+    logw = heads(_decay(m["w"], params))
     return r, k, v, g, logw
 
 
@@ -90,13 +97,26 @@ def time_mix(
     B, S, D = x.shape
     K = D // n_heads
     last = state["last"] if state else None
-    Sst = (state["S"] if state else
-           torch.zeros((B, n_heads, K, K), dtype=torch.float32,
-                       device=x.device))
     xprev = _token_shift(x, last)
     r, k, v, g, logw = _project(x, xprev, params, n_heads)
     u = params["u"].reshape(n_heads, K)
+    wkv = _wkv
+    if _dt.is_dtensor(r):
+        wkv = functools.partial(_dt.wkv, _wkv)
+    o, Sst = wkv(r, k, v, logw, u, state["S"] if state else None, chunk)
+    o = _group_norm(o, params).reshape(B, S, D)
+    y = _mm(o * g, params["wo"])
+    return y.to(x.dtype), {"S": Sst, "last": x[:, -1, :].float()}
 
+
+def _wkv(r, k, v, logw, u, Sst, chunk: int):
+    """The chunkwise recurrence of ``time_mix``: r, k, v, logw [B, S, H,
+    K], u [H, K], the state Sst [B, H, K, K] float32 (None: zeros) ->
+    (o [B, S, H, K] float32, the last state)."""
+    B, S, n_heads, K = r.shape
+    if Sst is None:
+        Sst = torch.zeros((B, n_heads, K, K), dtype=torch.float32,
+                          device=r.device)
     pad = (-S) % chunk
     if pad:
         r, k, v, logw = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in
@@ -109,7 +129,7 @@ def time_mix(
 
     rc, kc, vc, wc = resh(r), resh(k), resh(v), resh(logw)
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                 device=x.device), -1)
+                                 device=r.device), -1)
     outs = []
     for i in range(n_chunks):
         rr, kk, vv, ww = rc[i].float(), kc[i].float(), vc[i].float(), wc[i]
@@ -131,9 +151,7 @@ def time_mix(
         Sst = torch.exp(total[:, :, 0, :])[..., None] * Sst + torch.einsum(
             "bhsk,bhsv->bhkv", kdec, vv)
     o = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, T, n_heads, K)
-    o = _group_norm(o[:, :S], params).reshape(B, S, D)
-    y = _mm(o * g, params["wo"])
-    return y.to(x.dtype), {"S": Sst, "last": x[:, -1, :].float()}
+    return o[:, :S], Sst
 
 
 def time_mix_step(x: torch.Tensor, params, state: dict, *, n_heads: int):
@@ -142,16 +160,27 @@ def time_mix_step(x: torch.Tensor, params, state: dict, *, n_heads: int):
     K = D // n_heads
     xprev = state["last"][:, None, :].to(x.dtype)
     r, k, v, g, logw = _project(x, xprev, params, n_heads)
+    u = params["u"].reshape(n_heads, K)
+    step = _wkv_step
+    if _dt.is_dtensor(r):
+        step = functools.partial(_dt.wkv, _wkv_step)
+    o, Snew = step(r, k, v, logw, u, state["S"], 1)
+    o = _group_norm(o, params).reshape(B, 1, D)
+    y = _mm(o * g, params["wo"])
+    return y.to(x.dtype), {"S": Snew, "last": x[:, -1, :].float()}
+
+
+def _wkv_step(r, k, v, logw, u, Sst, chunk: int = 1):
+    """The recurrence of ``time_mix_step`` for one token: r, k, v, logw
+    [B, 1, H, K], u [H, K], the state Sst [B, H, K, K] float32 -> (o [B, 1,
+    H, K] float32, the new state); ``chunk`` is ``_wkv``'s, unused."""
+    B, _, n_heads, K = r.shape
     rr, kk, vv = r[:, 0].float(), k[:, 0].float(), v[:, 0].float()
     ww = torch.exp(logw[:, 0])                     # decay in (0, 1)
-    u = params["u"].reshape(n_heads, K)
-    Sst = state["S"]
     o = torch.einsum("bhk,bhkv->bhv", rr, Sst)
     o = o + torch.einsum("bhk,bhk->bh", rr, u[None] * kk)[..., None] * vv
     Snew = ww[..., None] * Sst + torch.einsum("bhk,bhv->bhkv", kk, vv)
-    o = _group_norm(o.reshape(B, 1, n_heads, K), params).reshape(B, 1, D)
-    y = _mm(o * g, params["wo"])
-    return y.to(x.dtype), {"S": Snew, "last": x[:, -1, :].float()}
+    return o.reshape(B, 1, n_heads, K), Snew
 
 
 def _channel(x, xprev, params):

@@ -41,6 +41,11 @@ Differences from JAX, each in place of a copy:
 The hybrid family's local attention decodes over a ring buffer of ``T =
 min(window, cache_len)`` slots, the new token written at ``pos % T``, as
 the reference does (``transformer.py:371``, ``:418``).
+
+On DTensors (the dry run's sharded step, ``launch/dryrun.py``) the
+embedding lookup, the heads' split and merge, the residual stream's
+layout and the cache writes go through ``distributed.dtensor``; on plain
+tensors each of those hooks is the plain op.
 """
 from __future__ import annotations
 
@@ -50,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import dtensor as _dt
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.attention import decode_attention, gqa_attention
 from repro_torch.models.common import (
@@ -408,34 +414,45 @@ def params_from_numpy(tree: dict, cfg: ArchConfig, *, device=None) -> LM:
 # --------------------------------------------------------------------------
 # Blocks (sequence forward)
 # --------------------------------------------------------------------------
+def _heads(t, B: int, S: int, H: int, hd: int):
+    """A projection [B, S, H * hd] as heads [B, S, H, hd]; a DTensor is
+    first split along whole heads, or made whole (``dtensor.heads``)."""
+    return _dt.heads(t, H).reshape(B, S, H, hd)
+
+
 def _attn_block(x, lp, cfg: ArchConfig, sin, cos, *, window=0, q_chunk=0,
                 causal=True):
     B, S, _ = x.shape
     hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv
-    q = (x @ lp["wq"]).reshape(B, S, Hq, hd)
-    k = (x @ lp["wk"]).reshape(B, S, Hkv, hd)
-    v = (x @ lp["wv"]).reshape(B, S, Hkv, hd)
+    q = _heads(x @ lp["wq"], B, S, Hq, hd)
+    k = _heads(x @ lp["wk"], B, S, Hkv, hd)
+    v = _heads(x @ lp["wv"], B, S, Hkv, hd)
     if sin is not None:
         q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
     o = gqa_attention(q, k, v, causal=causal, window=window, q_chunk=q_chunk,
                       k_chunk=cfg.attn_k_chunk)
-    return o.reshape(B, S, Hq * hd) @ lp["wo"]
+    return _dt.residual(_dt.merge_heads(o) @ lp["wo"])
 
 
 def _mlp_block(x, lp):
-    return (F.silu(x @ lp["wg"]) * (x @ lp["wu"])) @ lp["wd"]
+    return _dt.residual((F.silu(x @ lp["wg"]) * (x @ lp["wu"])) @ lp["wd"])
 
 
 def _moe(x, lp, cfg: ArchConfig):
     y, _aux = moe_ffn(x, lp, top_k=cfg.top_k,
                       capacity_factor=cfg.capacity_factor, impl=cfg.moe_impl)
-    return y
+    return _dt.residual(y)
+
+
+def _rec_block(x, rec):
+    """One RG-LRU block over a sequence, from zero state."""
+    return _dt.residual(recurrent_block(x, rec, None)[0])
 
 
 def _hybrid_super(x, lp, cfg, sin, cos, q_chunk):
-    x = x + recurrent_block(rms_norm(x, lp["ln_r1"]), lp["rec1"], None)[0]
+    x = x + _rec_block(rms_norm(x, lp["ln_r1"]), lp["rec1"])
     x = x + _mlp_block(rms_norm(x, lp["ln_m1"]), lp["mlp1"])
-    x = x + recurrent_block(rms_norm(x, lp["ln_r2"]), lp["rec2"], None)[0]
+    x = x + _rec_block(rms_norm(x, lp["ln_r2"]), lp["rec2"])
     x = x + _mlp_block(rms_norm(x, lp["ln_m2"]), lp["mlp2"])
     x = x + _attn_block(rms_norm(x, lp["ln_a"]), lp, cfg, sin, cos,
                         window=cfg.window, q_chunk=q_chunk)
@@ -443,22 +460,23 @@ def _hybrid_super(x, lp, cfg, sin, cos, q_chunk):
 
 
 def _hybrid_tail(x, lp):
-    x = x + recurrent_block(rms_norm(x, lp["ln_r"]), lp["rec"], None)[0]
+    x = x + _rec_block(rms_norm(x, lp["ln_r"]), lp["rec"])
     return x + _mlp_block(rms_norm(x, lp["ln_m"]), lp["mlp"])
 
 
 def _rwkv_layer(x, lp, cfg):
     H = _rwkv_heads(cfg)
-    x = x + rwkv_mod.time_mix(rms_norm(x, lp["ln1"]), lp, None,
-                              n_heads=H)[0]
-    return x + rwkv_mod.channel_mix(rms_norm(x, lp["ln2"]), lp, None)[0]
+    x = x + _dt.residual(rwkv_mod.time_mix(rms_norm(x, lp["ln1"]), lp, None,
+                                           n_heads=H)[0])
+    return x + _dt.residual(
+        rwkv_mod.channel_mix(rms_norm(x, lp["ln2"]), lp, None)[0])
 
 
 def _cross(h, lp, cfg: ArchConfig, k, v, attend):
     """Cross attention of the decoder's h [B, S, D] over encoder K/V."""
     B, S, _ = h.shape
-    q = (rms_norm(h, lp["ln_x"]) @ lp["xq"]).reshape(B, S, cfg.n_heads, cfg.hd)
-    return attend(q, k, v).reshape(B, S, cfg.n_heads * cfg.hd) @ lp["xo"]
+    q = _heads(rms_norm(h, lp["ln_x"]) @ lp["xq"], B, S, cfg.n_heads, cfg.hd)
+    return _dt.residual(_dt.merge_heads(attend(q, k, v)) @ lp["xo"])
 
 
 def _layer(fn, x, remat: bool):
@@ -493,8 +511,8 @@ def _decoder_layer(x, lp, cfg: ArchConfig, sin, cos, q_chunk, e):
                         q_chunk=q_chunk)
     if cfg.family == "encdec":
         Se = e.shape[1]
-        k = (e @ lp["xk"]).reshape(B, Se, cfg.n_kv, cfg.hd)
-        v = (e @ lp["xv"]).reshape(B, Se, cfg.n_kv, cfg.hd)
+        k = _heads(e @ lp["xk"], B, Se, cfg.n_kv, cfg.hd)
+        v = _heads(e @ lp["xv"], B, Se, cfg.n_kv, cfg.hd)
         h = h + _cross(h, lp, cfg, k, v, lambda q, k, v:
                        gqa_attention(q, k, v, causal=False))
     if cfg.family == "moe":
@@ -510,7 +528,7 @@ def forward(params: LM, tokens: torch.Tensor, cfg: ArchConfig, *,
     ``remat`` each layer's activations are recomputed in backward instead
     of kept; the logits are the same either way."""
     B, S = tokens.shape
-    x = params.embed[tokens.long()]
+    x = _dt.residual(_dt.embed(params.embed, tokens))
     sin, cos = rope(torch.arange(S, device=x.device), cfg.hd, cfg.rope_theta)
     sin, cos = sin[None], cos[None]
 
@@ -627,15 +645,19 @@ def _decode_attn_layer(x, lp, cache_k, cache_v, slot: int, kv_len,
     at ``slot``, then one ``decode_attention`` over ``kv_len`` rows."""
     B = x.shape[0]
     hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv
-    q = (x @ lp["wq"]).reshape(B, 1, Hq, hd)
-    k = (x @ lp["wk"]).reshape(B, 1, Hkv, hd)
-    v = (x @ lp["wv"]).reshape(B, 1, Hkv, hd)
+    q = _heads(x @ lp["wq"], B, 1, Hq, hd)
+    k = _heads(x @ lp["wk"], B, 1, Hkv, hd)
+    v = _heads(x @ lp["wv"], B, 1, Hkv, hd)
     q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
-    cache_k[:, slot] = k[:, 0]
-    cache_v[:, slot] = v[:, 0]
+    if _dt.is_dtensor(cache_k):
+        _dt.write_row(cache_k, slot, k[:, 0])
+        _dt.write_row(cache_v, slot, v[:, 0])
+    else:
+        cache_k[:, slot] = k[:, 0]
+        cache_v[:, slot] = v[:, 0]
     o = decode_attention(q, cache_k, cache_v, kv_len,
                          mxu_native=cfg.attn_mxu_native, mode=mode)
-    return o.reshape(B, 1, Hq * hd) @ lp["wo"]
+    return _dt.residual(_dt.merge_heads(o) @ lp["wo"])
 
 
 def _rec_step(x, rec, h, c):
@@ -643,7 +665,7 @@ def _rec_step(x, rec, h, c):
     y, s = recurrent_block_step(x, rec, {"h": h, "conv": c})
     h.copy_(s["h"])
     c.copy_(s["conv"])
-    return y
+    return _dt.residual(y)
 
 
 def decode_step(params: LM, state: dict, tokens: torch.Tensor, pos: int,
@@ -652,7 +674,7 @@ def decode_step(params: LM, state: dict, tokens: torch.Tensor, pos: int,
     returns (logits [B, 1, V], state), every cache and recurrent state of
     ``state`` written in place.  ``mode`` picks the attention: None follows
     the device, ``"cuda"`` the kernel, ``"ref"`` the twin."""
-    x = params.embed[tokens.long()]
+    x = _dt.residual(_dt.embed(params.embed, tokens))
     B = x.shape[0]
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     sin, cos = rope(positions, cfg.hd, cfg.rope_theta)
@@ -703,11 +725,11 @@ def decode_step(params: LM, state: dict, tokens: torch.Tensor, pos: int,
                 {"S": state["S"][i], "last": state["last"][i]}, n_heads=H)
             state["S"][i].copy_(ts["S"])
             state["last"][i].copy_(ts["last"])
-            x = x + y
+            x = x + _dt.residual(y)
             y, cs = rwkv_mod.channel_mix_step(
                 rms_norm(x, lp["ln2"]), lp, {"last_c": state["last_c"][i]})
             state["last_c"][i].copy_(cs["last_c"])
-            x = x + y
+            x = x + _dt.residual(y)
     else:
         raise ValueError(cfg.family)
     return rms_norm(x, params.ln_f) @ params.head, state

@@ -17,10 +17,14 @@ writes the weights and the moments in place (``optim.adamw``).
 accumulator, a spec tree of ``distributed.sharding`` (``param_specs``) for
 ``mesh`` (by default the one card's): the first step holds each spec to its
 stacked leaf on the mesh (``ValueError`` naming the leaf) and refuses a mesh
-of more than one card (``NotImplementedError``); on one card the constraint
-is the identity, as ``with_sharding_constraint`` is on one device.  Left
-out of the signature: ``unroll`` (a ``lax.scan`` detail; the port's loops
-are Python's).
+of more than one real card (``NotImplementedError``); on one card the
+constraint is the identity, as ``with_sharding_constraint`` is on one
+device.  On a ``DeviceMesh`` over a fake process group (the dry run, the
+weights DTensors laid out by ``distribute_model``) each microbatch's
+gradient is redistributed to its spec's placements before it is added, as
+the reference constrains each one (:61-63, :75); AdamW then runs on the
+DTensors as it is.  Left out of the signature: ``unroll`` (a ``lax.scan``
+detail; the port's loops are Python's).
 """
 from __future__ import annotations
 
@@ -29,9 +33,12 @@ import torch
 from repro_torch.distributed.sharding import (
     check_specs,
     one_card_mesh,
+    placements,
     require_one_card,
     stacked_shapes,
+    tree_leaves,
 )
+from repro_torch.models.transformer import tree_path
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.transformer import LM, forward
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
@@ -77,6 +84,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, n_micro: int,
     docstring.
     """
     unchecked = [grad_specs is not None]
+    sharded = grad_specs is not None and hasattr(mesh, "mesh_dim_names")
 
     def step(model: LM, opt_state: dict, batch: dict):
         if unchecked[0]:
@@ -87,14 +95,15 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, n_micro: int,
             unchecked[0] = False
         model.trainable_(True)
         names, weights = zip(*model.named_parameters())
-        grads = None
-        loss_sum = torch.zeros((), dtype=torch.float32,
-                               device=weights[0].device)
+        layout = _grad_layout(names, grad_specs, mesh) if sharded else None
+        grads = loss_sum = None
         for i in range(n_micro):
             enc = batch["enc_inputs"][i] if has_enc else None
             loss = loss_fn(model, batch["tokens"][i], batch["labels"][i], cfg,
                            enc_inputs=enc, q_chunk=q_chunk, remat=remat)
             g = torch.autograd.grad(loss, weights)
+            if layout is not None:
+                g = [x.redistribute(mesh, pl) for x, pl in zip(g, layout)]
             if grads is None:          # 0 + g: the reference's f32 zeros
                 grads = [x.float() if x.dtype != torch.float32 else x
                          for x in g]
@@ -102,7 +111,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, n_micro: int,
                 for acc, x in zip(grads, g):
                     acc.add_(x)
             del g
-            loss_sum += loss.detach()
+            # 0 + loss is loss: the first microbatch's loss starts the sum
+            loss_sum = (loss.detach() if loss_sum is None
+                        else loss_sum + loss.detach())
         inv = 1.0 / n_micro
         for acc in grads:
             acc.mul_(inv)
@@ -112,3 +123,15 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, n_micro: int,
         return model, opt_state, {"loss": loss, **om}
 
     return step
+
+
+def _grad_layout(names, grad_specs, mesh) -> list:
+    """Each parameter's placements on ``mesh`` by its stacked leaf's spec
+    in ``grad_specs`` (the leading layer axis dropped)."""
+    spec_of = dict(tree_leaves(grad_specs))
+    out = []
+    for n in names:
+        path, layer = tree_path(n)
+        spec = spec_of[path]
+        out.append(placements(spec if layer is None else spec[1:], mesh))
+    return out

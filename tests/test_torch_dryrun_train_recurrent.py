@@ -1,0 +1,29 @@
+"""The dry run's train cells on the 16 x 16 fake mesh end ``ok`` in the
+port (recurrentgemma-2b and whisper-tiny; the other archs in
+``tests/test_torch_dryrun_train.py`` and ``_train_rwkv.py``): each cell's real train step (``make_train_step`` with its
+``grad_specs`` on the fake group's mesh, remat, the cell's ``n_micro``,
+AdamW on the DTensors) counted by the probes, every counted field filled
+(``tests/torch_dryrun_one_device.py`` ``check_record``), no
+``decode_attn`` op, and the gradients reduced across the mesh.  The
+reference's own ``train_4k`` cells fail to lower under jax 0.9.0
+(``ROADMAP.md`` Queue 3 item 7), so they have no witness there.
+"""
+import pytest
+
+from repro_torch.launch import dryrun
+from torch_dryrun_one_device import check_record
+from torch_train_lane import one_torch_thread  # noqa: F401 (autouse)
+
+ARCHS = ["recurrentgemma-2b", "whisper-tiny"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_cell_is_counted(arch, tmp_path):
+    rec = dryrun.run_cell(arch, "train_4k", multi_pod=False,
+                          out_dir=str(tmp_path))
+    check_record(rec)
+    assert rec["decode_attn_ops"] == 0
+    assert rec["meta"]["n_micro"] >= 1
+    assert rec["collectives"]["reduce-scatter"] + rec["collectives"][
+        "all-reduce"] > 0
+    assert 0 < rec["useful_flops_ratio"] <= 1
