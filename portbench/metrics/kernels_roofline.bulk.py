@@ -1,0 +1,13 @@
+"""The least time of the slice's work (``portbench.workcount``) over the
+summed device time of every kernel in the slice, in percent: how near the
+kernels come to the card's floor for the classifies they ran."""
+LAYER = "kernels"
+UNIT = "%"
+MOVES = "packets_per_s"
+
+
+def read(reading):
+    sl = reading.slice
+    if sl is None or sl.work is None or sl.kernel_s <= 0:
+        return None
+    return 100.0 * sl.work.least_s / sl.kernel_s
