@@ -99,9 +99,9 @@ JAX package.  Phases, each fatal on failure:
              CUDA graph per admission bucket) and through executors built
              with ``graphs=False``; per step the wall time, requests/s,
              busy time and ``cudaLaunchKernel`` / ``cudaMemcpyAsync`` /
-             ``cudaGraphLaunch`` calls under the profiler, the fused step
-             taken apart on the host clock, and one in-place slot install
-             and evict in ms.
+             ``cudaGraphLaunch`` calls under the profiler with the host
+             time of each of the program's spans (``acorn.*``), and one
+             in-place slot install and evict in ms.
 10. graphs — the graph path held on the card: replay == eager ==
              ``SwitchEngine(mode="ref")`` on rslt, codes and svm_acc for
              all 204 conformance draws (``repro_torch.data.conformance``)
@@ -120,9 +120,10 @@ JAX package.  Phases, each fatal on failure:
              to the sync classify on the zoo's traffic (1-64-packet
              requests); the closed-loop rate of ``ContinuousZooServer``
              (n_slots 2, 64 clients); ``open_loop`` (Poisson) at 0.25-1.0
-             of that rate, each load with the server's own split, a
-             dispatch's steps on its thread, the event loop's lag and the
-             garbage collector's pauses.
+             of that rate, each load with the server's own split of a
+             dispatch (``latency_stats()``: the wait for a slot, to the
+             thread, on it, the executor's lock, back to the loop, the
+             buckets' padding) and the garbage collector's pauses.
 12. fleet  — the zoo of phase 5 deployed by ``FleetRuntime`` over
              ``fat_tree(4)`` between two pods on switches of 40 stage
              slots (5 hosting hops), on its hop pool: B 4096 in the fused
@@ -248,6 +249,7 @@ from ``repro_torch.analysis.roofline`` (``HW()``: the H100's peaks).
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -1536,7 +1538,10 @@ def where_the_time_goes(step, torch, n=10):
     time per step (the kernels' and copies' own device time, each counted
     once: the torch ops that launched them are left out of the sum) and its
     share of the wall time under the profiler; the top host ops and the top
-    device activities.  Returns the busy us per step."""
+    device activities; the host time of each of the program's spans
+    (``repro_torch.runtime.trace``: the request build, admission, the
+    executor, the copy out) a step.  Returns the busy us per step."""
+    from repro_torch.runtime.trace import PREFIX
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1574,7 +1579,16 @@ def where_the_time_goes(step, torch, n=10):
                          "cudaGraphLaunch")}
     print("host API calls per step: " + ", ".join(
         f"{k} {v:g}" for k, v in calls.items()))
-    return dict(busy_us=busy / n, wall_us=wall_us / n, **calls)
+    spans = collections.Counter()
+    for e in p.events():
+        if e.name.startswith(PREFIX) and e.device_type == DeviceType.CPU:
+            spans[e.name] += (e.time_range.end - e.time_range.start) / n
+    if spans:
+        print("the program's spans (host us per step, each with its "
+              "children): " + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in spans.items()))
+    return dict(busy_us=busy / n, wall_us=wall_us / n, spans_us=dict(spans),
+                **calls)
 
 
 NCU_METRICS = ("sm__warps_active.avg.pct_of_peak_sustained_active",
@@ -1791,34 +1805,6 @@ def svm_library(img, features, vid, lv, torch):
                                     per_sample_weights=w)
 
 
-def host_breakdown(name, zoo, X, mid, vid, torch, n=20):
-    """One ``ZooServer.classify`` taken apart, unprofiled, host clock: ms a
-    step building the request, admitting it (the pad, into pinned memory on
-    the graph path), the executor's classify (staging, replay and copy out,
-    or the eager launches: enqueued, not waited for) and the rslt's copy
-    back, which waits for the card."""
-    rt = zoo.runtime
-    parts = dict(request=0.0, admission=0.0, classify=0.0, result=0.0)
-    for _ in range(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pb = zoo.make_request(X, mid=mid, vid=vid)
-        t1 = time.perf_counter()
-        padded = rt.admit(pb)
-        t2 = time.perf_counter()
-        out = rt.executor.classify(padded)
-        t3 = time.perf_counter()
-        out.rslt[:pb.batch].cpu()
-        t4 = time.perf_counter()
-        for k, a, b in (("request", t0, t1), ("admission", t1, t2),
-                        ("classify", t2, t3), ("result", t3, t4)):
-            parts[k] += (b - a) * 1e3 / n
-    print(f"{name} by part (host ms a step, unprofiled): " + ", ".join(
-        f"{k} {v:.4f}" for k, v in parts.items())
-        + f"; sum {sum(parts.values()):.4f}")
-    return parts
-
-
 def eager_twins(prof, device, programs, runtimes):
     """The zoo in the three modes and the planned path, as the graph path
     has them, through executors built with ``graphs=False``: the eager
@@ -2018,10 +2004,6 @@ def timing_phase(zoos, runtimes, eager_zoos, eager_runtimes, pb, prof,
         print(f"-- where the time goes, {name}")
         prof_steps[name] = dict(where_the_time_goes(step, torch, n=5),
                                 wall_ms=walls[name] * 1e3)
-    for name, z in (("zoo_fused", zoos[None]),
-                    ("zoo_fused_eager", eager_zoos[None])):
-        prof_steps[name]["host_ms"] = host_breakdown(name, z, X, mid, vids,
-                                                     torch)
     stamp("profiles done")
     writes = install_timing(zoos[None], models, torch)
     return out, rps, prof_steps, writes
@@ -2389,8 +2371,7 @@ def fronts_phase(prof, seed, zoo, test_sets, device):
     import numpy as np
     import torch
     from repro_torch.core.packets import u32_from_bits
-    from repro_torch.runtime import SizeOrDeadlinePolicy, trim
-    from repro_torch.runtime.admission import land_on_host
+    from repro_torch.runtime import SizeOrDeadlinePolicy
     from repro_torch.serving import (
         AsyncZooServer,
         ContinuousZooServer,
@@ -2461,43 +2442,6 @@ def fronts_phase(prof, seed, zoo, test_sets, device):
     async def opened(load):
         async with ContinuousZooServer(zoo, policy=policy(),
                                        n_slots=2) as srv:
-            # instruments: run_host as the slot threads see it, and how
-            # late the event loop wakes from a 1 ms sleep
-            on_thread, lags, done = [], [], asyncio.Event()
-            rt = srv.runtime
-
-            def timed(flat):
-                # run_host's steps, each on the clock
-                t = [time.perf_counter()]
-                padded = rt.admit(flat)
-                t.append(time.perf_counter())
-                out = rt.executor.classify(padded)
-                t.append(time.perf_counter())
-                host = trim(land_on_host(out), flat.batch)
-                t.append(time.perf_counter())
-                res = (host.rslt.numpy(), u32_from_bits(host.codes),
-                       host.svm_acc.numpy())
-                t.append(time.perf_counter())
-                on_thread.append(np.diff(t) * 1e3)
-                return res
-            srv._classify_flat = timed
-            made = []
-            make = srv.zoo.make_request
-
-            def timed_make(*a, **kw):
-                t0 = time.perf_counter()
-                pb = make(*a, **kw)
-                made.append((time.perf_counter() - t0) * 1e3)
-                return pb
-            srv.zoo.make_request = timed_make
-            loop = asyncio.get_running_loop()
-
-            async def lag():
-                while not done.is_set():
-                    t0 = loop.time()
-                    await asyncio.sleep(1e-3)
-                    lags.append((loop.time() - t0 - 1e-3) * 1e3)
-
             async def submit(i):
                 X, mid, vid = reqs[i % len(reqs)]
                 await srv.submit(X, mid=mid, vid=vid)
@@ -2512,23 +2456,13 @@ def fronts_phase(prof, seed, zoo, test_sets, device):
                     pauses.append((info["generation"],
                                    (time.perf_counter() - t_gc[0]) * 1e3))
             gc.callbacks.append(on_gc)
-            probe = loop.create_task(lag())
             try:
                 report = await open_loop(submit, rate_rps=load * rate,
                                          n_requests=n, n_clients=8,
                                          seed=seed)
             finally:
                 gc.callbacks.remove(on_gc)
-                del srv.zoo.make_request
-            done.set()
-            await probe
-            parts = np.mean(on_thread, axis=0)
             return report, dict(srv.latency_stats(),
-                                run_host_ms=float(parts.sum()),
-                                run_host_parts_ms=[float(x) for x in parts],
-                                make_request_ms=float(np.mean(made)),
-                                lag_p50_ms=float(np.percentile(lags, 50)),
-                                lag_p99_ms=float(np.percentile(lags, 99)),
                                 gc_n=len(pauses),
                                 gc_ms=sum(ms_ for _, ms_ in pauses),
                                 gc2_n=sum(g == 2 for g, _ in pauses),
@@ -2542,17 +2476,16 @@ def fronts_phase(prof, seed, zoo, test_sets, device):
               f"{report.p99_ms:.3f} ms, p99.9 {report.p999_ms:.3f} ms, errors "
               f"{report.errors} of {report.requests}; in the server: p50 "
               f"{stats['p50_ms']:.3f} ms, queue wait p50 "
-              f"{stats['p50_wait_ms']:.3f} ms, a dispatch "
-              f"{stats['mean_dispatch_ms']:.3f} ms (run_host on its thread "
-              f"{stats['run_host_ms']:.3f} ms: admit, classify, land, to "
-              "numpy " + " / ".join(f"{x:.3f}" for x in
-                                      stats["run_host_parts_ms"])
-              + f"), a request built in {stats['make_request_ms']:.3f} ms on "
-              f"the loop, "
-              f"{stats['mean_batch_packets']:.1f} packets; the event loop "
-              f"wakes late by p50 {stats['lag_p50_ms']:.3f} ms, p99 "
-              f"{stats['lag_p99_ms']:.3f} ms; the garbage collector ran "
-              f"{stats['gc_n']} times ({stats['gc2_n']} full), "
+              f"{stats['p50_wait_ms']:.3f} ms, a cut's wait for a slot "
+              f"{stats['mean_slot_wait_ms']:.3f} ms, a dispatch "
+              f"{stats['mean_dispatch_ms']:.3f} ms (to the thread "
+              f"{stats['mean_to_thread_ms']:.3f}, on it "
+              f"{stats['mean_on_thread_ms']:.3f} of which the lock "
+              f"{stats['mean_lock_wait_ms']:.3f}, back to the loop "
+              f"{stats['mean_to_loop_ms']:.3f}), "
+              f"{stats['mean_batch_packets']:.1f} packets, padding "
+              f"{100 * stats['pad_share']:.1f}% of the buckets; the garbage "
+              f"collector ran {stats['gc_n']} times ({stats['gc2_n']} full), "
               f"{stats['gc_ms']:.1f} ms in all, longest "
               f"{stats['gc_max_ms']:.1f} ms")
         if report.errors:
@@ -2563,11 +2496,10 @@ def fronts_phase(prof, seed, zoo, test_sets, device):
                     server_p50_ms=stats["p50_ms"],
                     server_wait_p50_ms=stats["p50_wait_ms"],
                     dispatch_ms=stats["mean_dispatch_ms"],
-                    run_host_ms=stats["run_host_ms"],
-                    run_host_parts_ms=stats["run_host_parts_ms"],
-                    make_request_ms=stats["make_request_ms"],
-                    loop_lag_p50_ms=stats["lag_p50_ms"],
-                    loop_lag_p99_ms=stats["lag_p99_ms"],
+                    **{k: stats[k] for k in (
+                        "mean_slot_wait_ms", "mean_to_thread_ms",
+                        "mean_on_thread_ms", "mean_lock_wait_ms",
+                        "mean_to_loop_ms", "pad_share")},
                     gc_collections=stats["gc_n"], gc_full=stats["gc2_n"],
                     gc_ms=stats["gc_ms"], gc_max_ms=stats["gc_max_ms"])
 

@@ -1,0 +1,16 @@
+"""Admission's pad of the request into its bucket's pinned buffer
+(``DataplaneRuntime.admit``), in microseconds a classify: the program's
+``acorn.admit`` span, summed on the benchmark's thread over the traced
+slice, over the slice's classifies."""
+LAYER = "serving front, admission and executor"
+UNIT = "us"
+MOVES = "packets_per_s"
+SPAN = "acorn.admit"
+
+
+def read(reading):
+    sl = reading.slice
+    if sl is None or not sl.classifies:
+        return None
+    t = [e - s for n, s, e, th in sl.host if n == SPAN and th == sl.thread]
+    return sum(t) / sl.classifies if t else None

@@ -5,7 +5,8 @@ executors (single switch, sequential path, and the pipelined and sharded
 policies, and ``control.py``, the self-healing control loop over a fleet:
 ``ControlLoop``, ``ControlCounters``, ``DeviceFailure``).  ``graphs.py`` is
 the port's own: the captured CUDA graph per admission bucket that stands in
-for the reference's jit cache."""
+for the reference's jit cache; so is ``trace.py``, the named spans of the
+classify and serving path's host work."""
 from repro_torch.runtime.admission import (
     bucket_ladder,
     bucket_size,

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.core.packets import PacketBatch
 from repro_torch.core.plane import PlaneProfile
+from repro_torch.runtime import trace
 from repro_torch.runtime.admission import (
     bucket_ladder,
     bucket_size,
@@ -62,7 +63,8 @@ class DataplaneRuntime:
         dev = getattr(self.executor, "device", None)
         pin = (dev is not None and torch.device(dev).type == "cuda"
                and batch.device.type == "cpu")
-        return pad_to_bucket(batch, self.bucket(batch.batch), pin=pin)
+        with trace.span("admit"):
+            return pad_to_bucket(batch, self.bucket(batch.batch), pin=pin)
 
     def run(self, batch: PacketBatch) -> PacketBatch:
         """Classify a flat request batch of any size.
@@ -74,7 +76,10 @@ class DataplaneRuntime:
         B = batch.batch
         if B == 0:
             return batch
-        return trim(self.executor.classify(self.admit(batch)), B)
+        padded = self.admit(batch)
+        with trace.span("executor"):
+            out = self.executor.classify(padded)
+        return trim(out, B)
 
     def run_host(self, batch: PacketBatch) -> PacketBatch:
         """``run`` variant that lands the result on the host (CPU tensors):
@@ -82,8 +87,11 @@ class DataplaneRuntime:
         B = batch.batch
         if B == 0:
             return batch
-        out = self.executor.classify(self.admit(batch))
-        return trim(land_on_host(out), B)
+        padded = self.admit(batch)
+        with trace.span("executor"):
+            out = self.executor.classify(padded)
+        with trace.span("copy_out"):
+            return trim(land_on_host(out), B)
 
     def warm(self, make_batch, max_batch: int) -> tuple[int, ...]:
         """Drive every admission bucket up to ``bucket(max_batch)`` once

@@ -55,6 +55,7 @@ from repro_torch.core.packets import (
     flat_views,
     widths,
 )
+from repro_torch.runtime import trace
 
 __all__ = ["GraphCache", "Serial"]
 
@@ -177,7 +178,8 @@ class GraphCache:
         if self.device.type != "cuda":
             entry.compute()
         elif fresh:
-            self._capture(entry)
+            with trace.span("capture"):
+                self._capture(entry)
         else:
             entry.graph.replay()
             _add_launches(entry.launches)
@@ -227,7 +229,8 @@ class Serial:
         self._done: torch.cuda.Event | None = None
 
     def __enter__(self) -> "Serial":
-        self._lock.acquire()
+        with trace.span("lock"):
+            self._lock.acquire()
         if self.device.type == "cuda" and self._done is not None:
             torch.cuda.current_stream(self.device).wait_event(self._done)
         return self

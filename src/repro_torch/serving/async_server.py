@@ -60,27 +60,39 @@ Latency accounting: each request carries ``t_submit`` / ``t_dispatch`` /
 p50/p99/p99.9 end-to-end latency, queue wait, and mean coalesced batch
 size.  Empty submits (B = 0) resolve without a dispatch but are counted —
 rates and percentiles cover every accepted request, not just the queued
-ones.
+ones.  Each dispatch keeps a ``Dispatch`` record: its stamps on the same
+clock from the cut to the dispatching coroutine resuming, and the spans
+(``runtime/trace.py``) its worker thread ran, which ``latency_stats()``
+turns into the dispatch's split by cause.
 """
 from __future__ import annotations
 
 import asyncio
 import collections
 import dataclasses
+import time
 
 import numpy as np
 
 from repro_torch.core.packets import PacketBatch, u32_from_bits
-from repro_torch.runtime import DataplaneRuntime
+from repro_torch.runtime import DataplaneRuntime, trace
 from repro_torch.runtime.policies import BatchingPolicy, ImmediatePolicy
 from repro_torch.serving.serve import ZooServer
 
-__all__ = ["AsyncResult", "AsyncZooServer"]
+__all__ = ["AsyncResult", "AsyncZooServer", "Dispatch"]
 
 
 @dataclasses.dataclass
 class AsyncResult:
-    """One request's demuxed classification + its latency accounting."""
+    """One request's demuxed classification + its latency accounting.
+
+    ``t_dispatch`` is its dispatch's pickup by a worker (``Dispatch``'s
+    ``t_pickup``) and ``t_done`` the dispatching coroutine resuming with
+    the results (``t_resume``).  ``latency_stats()``'s ``mean_dispatch_ms``
+    is the mean of ``t_done - t_dispatch`` over the dispatches, and
+    ``mean_to_thread_ms + mean_on_thread_ms + mean_to_loop_ms`` splits it;
+    ``queue_wait_s`` includes the cut's wait for a free slot
+    (``mean_slot_wait_ms``)."""
 
     rslt: np.ndarray      # int32 [B]
     codes: np.ndarray     # uint32 [B, T]
@@ -98,6 +110,29 @@ class AsyncResult:
     def queue_wait_s(self) -> float:
         """Coalescing delay the batching policy charged this request."""
         return self.t_dispatch - self.t_submit
+
+
+class Dispatch:
+    """One dispatch's accounting.  Stamps on the event loop's clock
+    (``time.monotonic``, s): ``t_cut``, the cut handed to a worker (to the
+    slot queue of ``ContinuousZooServer``); ``t_pickup``, a worker taking it
+    up (the base class's cut and pickup are one moment); ``t_start`` /
+    ``t_end``, ``_classify_flat`` starting and returning on its thread;
+    ``t_resume``, the dispatching coroutine resuming with the results.
+    ``spans``: the seconds of each span the thread ran inside
+    ``_classify_flat`` (``lock``, ``admit``, ``executor``, ``copy_out``,
+    ...; ``runtime/trace.py``).  ``packets`` / ``bucket``: the batch's
+    packets and its admission bucket's."""
+
+    __slots__ = ("packets", "bucket", "t_cut", "t_pickup", "t_start",
+                 "t_end", "t_resume", "spans")
+
+    def __init__(self, packets: int, bucket: int, t_cut: float) -> None:
+        self.packets = packets
+        self.bucket = bucket
+        self.t_cut = self.t_pickup = t_cut
+        self.t_start = self.t_end = self.t_resume = t_cut
+        self.spans: dict[str, float] = {}
 
 
 class _Pending:
@@ -141,8 +176,8 @@ class AsyncZooServer:
         # bounded: a long-lived front at line rate must not grow its
         # accounting without limit (stats_window = most recent requests /
         # dispatches retained; counters below keep lifetime totals)
-        self._dispatch_log: collections.deque[tuple[int, int, float, float]] \
-            = collections.deque(maxlen=stats_window)
+        self._dispatch_log: collections.deque[Dispatch] = \
+            collections.deque(maxlen=stats_window)
         self._latencies: collections.deque[float] = \
             collections.deque(maxlen=stats_window)
         self._queue_waits: collections.deque[float] = \
@@ -303,10 +338,20 @@ class AsyncZooServer:
         return await pending.future
 
     # ------------------------------------------------------------ dispatch
-    def _classify_flat(self, flat: PacketBatch):
-        # run_host: one padded-result transfer, host-side trim
-        out = self.runtime.run_host(flat)
-        return out.rslt.numpy(), u32_from_bits(out.codes), out.svm_acc.numpy()
+    def _dispatch(self, flat: PacketBatch, t_cut: float) -> Dispatch:
+        return Dispatch(flat.batch, self.runtime.bucket(flat.batch), t_cut)
+
+    def _classify_flat(self, flat: PacketBatch, rec: Dispatch):
+        """The blocking half of a dispatch, on a worker thread: its spans
+        are added to ``rec``."""
+        rec.t_start = time.monotonic()
+        with trace.recording(rec.spans):
+            # run_host: one padded-result transfer, host-side trim
+            out = self.runtime.run_host(flat)
+            res = (out.rslt.numpy(), u32_from_bits(out.codes),
+                   out.svm_acc.numpy())
+        rec.t_end = time.monotonic()
+        return res
 
     def _cut_batch(self) -> list[_Pending]:
         """Pop whole requests up to the policy's drain limit (>= 1 request)."""
@@ -350,8 +395,9 @@ class AsyncZooServer:
                     break   # deadline: cut what we have
             if not self._queue:
                 return None
-            reqs = self._cut_batch()
-            flat, offsets = self.runtime.coalesce([p.pb for p in reqs])
+            with trace.span("cut"):
+                reqs = self._cut_batch()
+                flat, offsets = self.runtime.coalesce([p.pb for p in reqs])
         except Exception as e:
             if not reqs:        # failed before the cut: fail the queue
                 reqs = list(self._queue)
@@ -361,30 +407,31 @@ class AsyncZooServer:
             return None
         return reqs, flat, offsets
 
-    def _finish_dispatch(self, reqs: list[_Pending], offsets, batch_packets,
-                         rslt, codes, acc, t_dispatch: float, t_done: float,
-                         waited_us: float) -> None:
+    def _finish_dispatch(self, reqs: list[_Pending], offsets, rslt, codes,
+                         acc, rec: Dispatch) -> None:
         """Back half of one dispatch: policy feedback, accounting, demux.
         A broken ``note_dispatch`` hook fails the batch's futures (the
         results are already computed, but the policy contract was violated
         — surface it) and leaves the server serving."""
-        try:
-            self.policy.note_dispatch(batch_packets, waited_us)
-        except Exception as e:   # broken feedback hook: surface it
-            self._fail(reqs, e)
-            return
-        self._dispatch_log.append(
-            (batch_packets, len(reqs), waited_us, t_done - t_dispatch))
-        self._total_dispatches += 1
-        for p, lo, hi in zip(reqs, offsets, offsets[1:]):
-            self._total_requests += 1
-            self._latencies.append(t_done - p.t_submit)
-            self._queue_waits.append(t_dispatch - p.t_submit)
-            if not p.future.done():   # client may have been cancelled
-                p.future.set_result(AsyncResult(
-                    rslt=rslt[lo:hi], codes=codes[lo:hi],
-                    svm_acc=acc[lo:hi], t_submit=p.t_submit,
-                    t_dispatch=t_dispatch, t_done=t_done))
+        t_dispatch, t_done = rec.t_pickup, rec.t_resume
+        with trace.span("demux"):
+            try:
+                self.policy.note_dispatch(
+                    rec.packets, (t_dispatch - reqs[0].t_submit) * 1e6)
+            except Exception as e:   # broken feedback hook: surface it
+                self._fail(reqs, e)
+                return
+            self._dispatch_log.append(rec)
+            self._total_dispatches += 1
+            for p, lo, hi in zip(reqs, offsets, offsets[1:]):
+                self._total_requests += 1
+                self._latencies.append(t_done - p.t_submit)
+                self._queue_waits.append(t_dispatch - p.t_submit)
+                if not p.future.done():   # client may have been cancelled
+                    p.future.set_result(AsyncResult(
+                        rslt=rslt[lo:hi], codes=codes[lo:hi],
+                        svm_acc=acc[lo:hi], t_submit=p.t_submit,
+                        t_dispatch=t_dispatch, t_done=t_done))
 
     async def _dispatch_loop(self) -> None:
         loop = asyncio.get_running_loop()
@@ -404,13 +451,12 @@ class AsyncZooServer:
             if cut is None:
                 continue
             reqs, flat, offsets = cut
-            t_dispatch = loop.time()
-            waited_us = (t_dispatch - reqs[0].t_submit) * 1e6
+            rec = self._dispatch(flat, loop.time())
             self._inflight += 1
             self._idle.clear()
             try:
                 rslt, codes, acc = await loop.run_in_executor(
-                    None, self._classify_flat, flat)
+                    None, self._classify_flat, flat, rec)
             except Exception as e:  # executor died: fail this batch's futures
                 self._fail(reqs, e)
                 continue
@@ -418,8 +464,8 @@ class AsyncZooServer:
                 self._inflight -= 1
                 if self._inflight == 0:
                     self._idle.set()
-            self._finish_dispatch(reqs, offsets, flat.batch, rslt, codes,
-                                  acc, t_dispatch, loop.time(), waited_us)
+            rec.t_resume = loop.time()
+            self._finish_dispatch(reqs, offsets, rslt, codes, acc, rec)
 
     async def _flush_stragglers(self) -> None:
         """Deterministic fail-or-flush of requests still queued after the
@@ -434,26 +480,32 @@ class AsyncZooServer:
             self._queued_packets = 0
             try:
                 flat, offsets = self.runtime.coalesce([p.pb for p in reqs])
-                t_dispatch = loop.time()
-                waited_us = (t_dispatch - reqs[0].t_submit) * 1e6
+                rec = self._dispatch(flat, loop.time())
                 rslt, codes, acc = await loop.run_in_executor(
-                    None, self._classify_flat, flat)
+                    None, self._classify_flat, flat, rec)
             except Exception as e:
                 self._fail(reqs, e)
                 continue
-            self._finish_dispatch(reqs, offsets, flat.batch, rslt, codes,
-                                  acc, t_dispatch, loop.time(), waited_us)
+            rec.t_resume = loop.time()
+            self._finish_dispatch(reqs, offsets, rslt, codes, acc, rec)
 
     # --------------------------------------------------------------- stats
     def latency_stats(self) -> dict:
         """Aggregate latency accounting: p50/p99/p99.9 end-to-end, queue
         wait, dispatch count, mean coalesced batch size and (the port's
-        addition) the mean dispatch time, from a dispatch's start to its
-        results.  ``requests``
-        / ``dispatches`` are lifetime totals; the distribution numbers
-        cover the most recent ``stats_window`` of each.  Registered stats
-        sources (``add_stats_source``) are merged in as nested dicts — the
-        control plane's counters appear under ``"control"``, the
+        additions) a dispatch's mean time and its split by cause, from its
+        ``Dispatch`` records (ms): ``mean_dispatch_ms``, from a worker's
+        pickup to the dispatching coroutine resuming, is
+        ``mean_to_thread_ms`` (the pickup to ``_classify_flat`` starting on
+        its thread) + ``mean_on_thread_ms`` (``_classify_flat`` on its
+        thread, of it ``mean_lock_wait_ms`` waiting for the executor's
+        lock) + ``mean_to_loop_ms`` (its return to the coroutine
+        resuming); ``mean_slot_wait_ms``, the cut to the pickup;
+        ``pad_share``, the admission buckets' padding over their packets.
+        ``requests`` / ``dispatches`` are lifetime totals; the distribution
+        numbers cover the most recent ``stats_window`` of each.  Registered
+        stats sources (``add_stats_source``) are merged in as nested dicts
+        — the control plane's counters appear under ``"control"``, the
         continuous engine's under ``"engine"``."""
         lat = np.asarray(self._latencies, float)
         if lat.size == 0:
@@ -461,8 +513,14 @@ class AsyncZooServer:
                    "dispatches": self._total_dispatches}
         else:
             waits = np.asarray(self._queue_waits, float)
-            batches = np.asarray(
-                [b for b, _, _, _ in self._dispatch_log], float)
+            d = np.asarray([(r.packets, r.bucket, r.t_cut, r.t_pickup,
+                             r.t_start, r.t_end, r.t_resume,
+                             r.spans.get("lock", 0.0))
+                            for r in self._dispatch_log], float).reshape(-1, 8)
+            packets, bucket, cut, pickup, start, end, resume, lock = d.T
+
+            def mean_ms(x) -> float:
+                return float(x.mean() * 1e3) if x.size else 0.0
             out = {
                 "requests": self._total_requests,
                 "dispatches": self._total_dispatches,
@@ -471,11 +529,16 @@ class AsyncZooServer:
                 "p999_ms": float(np.percentile(lat, 99.9) * 1e3),
                 "mean_ms": float(lat.mean() * 1e3),
                 "p50_wait_ms": float(np.percentile(waits, 50) * 1e3),
-                "mean_batch_packets": float(batches.mean())
-                if batches.size else 0.0,
-                "mean_dispatch_ms": float(np.mean(
-                    [d for _, _, _, d in self._dispatch_log]) * 1e3)
-                if batches.size else 0.0,
+                "mean_batch_packets": float(packets.mean())
+                if packets.size else 0.0,
+                "mean_dispatch_ms": mean_ms(resume - pickup),
+                "mean_slot_wait_ms": mean_ms(pickup - cut),
+                "mean_to_thread_ms": mean_ms(start - pickup),
+                "mean_on_thread_ms": mean_ms(end - start),
+                "mean_lock_wait_ms": mean_ms(lock),
+                "mean_to_loop_ms": mean_ms(resume - end),
+                "pad_share": float((bucket - packets).sum() / bucket.sum())
+                if packets.size else 0.0,
             }
         for name, fn in self._stats_sources.items():
             out[name] = fn()

@@ -60,22 +60,28 @@ from repro_torch.core.packets import PacketBatch
 from repro_torch.runtime import DataplaneRuntime
 from repro_torch.runtime.executors import Executor
 from repro_torch.runtime.policies import BatchingPolicy, SloAutoscaler
-from repro_torch.serving.async_server import AsyncZooServer, _Pending
+from repro_torch.serving.async_server import (
+    AsyncZooServer,
+    Dispatch,
+    _Pending,
+)
 from repro_torch.serving.serve import ZooServer
 
 __all__ = ["ContinuousZooServer"]
 
 
 class _Work:
-    """One cut batch in flight between the cutter and a slot worker."""
+    """One cut batch in flight between the cutter and a slot worker, and
+    its dispatch record."""
 
-    __slots__ = ("reqs", "flat", "offsets")
+    __slots__ = ("reqs", "flat", "offsets", "rec")
 
     def __init__(self, reqs: list[_Pending], flat: PacketBatch,
-                 offsets: tuple[int, ...]) -> None:
+                 offsets: tuple[int, ...], rec: Dispatch) -> None:
         self.reqs = reqs
         self.flat = flat
         self.offsets = offsets
+        self.rec = rec
 
 
 class ContinuousZooServer(AsyncZooServer):
@@ -240,7 +246,8 @@ class ContinuousZooServer(AsyncZooServer):
             # batch that was cut but not yet picked up
             self._inflight += 1
             self._idle.clear()
-            await self._slots_q.put(_Work(reqs, flat, offsets))
+            await self._slots_q.put(_Work(reqs, flat, offsets,
+                                          self._dispatch(flat, loop.time())))
         # closing: stop the slot workers after the queued work lands
         for _ in self._slot_tasks:
             await self._slots_q.put(None)
@@ -254,14 +261,13 @@ class ContinuousZooServer(AsyncZooServer):
             work = await self._slots_q.get()
             if work is None:
                 return
-            reqs, flat = work.reqs, work.flat
-            t_dispatch = loop.time()
-            waited_us = (t_dispatch - reqs[0].t_submit) * 1e6
+            reqs, rec = work.reqs, work.rec
+            rec.t_pickup = loop.time()
             self._executing += 1
             self._peak_executing = max(self._peak_executing, self._executing)
             try:
                 rslt, codes, acc = await loop.run_in_executor(
-                    self._pool, self._classify_flat, flat)
+                    self._pool, self._classify_flat, work.flat, rec)
             except Exception as e:   # executor died: fail this batch only
                 self._fail(reqs, e)
                 continue
@@ -270,10 +276,9 @@ class ContinuousZooServer(AsyncZooServer):
                 self._inflight -= 1
                 if self._inflight == 0:
                     self._idle.set()
-            t_done = loop.time()
-            self._finish_dispatch(reqs, work.offsets, flat.batch, rslt,
-                                  codes, acc, t_dispatch, t_done, waited_us)
-            self._observe(t_done, reqs)
+            rec.t_resume = loop.time()
+            self._finish_dispatch(reqs, work.offsets, rslt, codes, acc, rec)
+            self._observe(rec.t_resume, reqs)
 
     # --------------------------------------------------------------- stats
     def _engine_stats(self) -> dict:

@@ -21,6 +21,7 @@ from repro_torch.core.translator import TableProgram, translate
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.transformer import decode_step, forward
 from repro_torch.runtime import DataplaneRuntime, Executor, SingleSwitchExecutor
+from repro_torch.runtime import trace
 
 __all__ = ["make_prefill_step", "make_decode_step", "greedy_decode",
            "ZooServer"]
@@ -128,10 +129,11 @@ class ZooServer:
         """Build a REQUEST batch (host tensors) sized to this zoo's plane
         profile — the one request-construction path of every classify."""
         prof = self.profile
-        return PacketBatch.make_request(
-            features, mid=mid, vid=vid, max_features=prof.max_features,
-            n_trees=prof.max_trees, n_hyperplanes=prof.max_hyperplanes,
-            max_versions=prof.max_versions)
+        with trace.span("request"):
+            return PacketBatch.make_request(
+                features, mid=mid, vid=vid, max_features=prof.max_features,
+                n_trees=prof.max_trees, n_hyperplanes=prof.max_hyperplanes,
+                max_versions=prof.max_versions)
 
     def classify(self, features, *, mid: int, vid: int | np.ndarray,
                  device_out: bool = False) -> np.ndarray | PacketBatch:
@@ -139,10 +141,13 @@ class ZooServer:
 
         ``device_out=True`` returns the classified ``PacketBatch`` on the
         device instead of the host ``rslt`` array."""
-        out = self.runtime.run(self.make_request(features, mid=mid, vid=vid))
-        if device_out:
-            return out
-        return out.rslt.cpu().numpy()
+        with trace.span("classify"):
+            out = self.runtime.run(self.make_request(features, mid=mid,
+                                                     vid=vid))
+            if device_out:
+                return out
+            with trace.span("copy_out"):
+                return out.rslt.cpu().numpy()
 
     def classify_coalesced(self, requests) -> list[np.ndarray]:
         """Classify several per-client request batches as ONE dispatch.
