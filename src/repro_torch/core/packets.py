@@ -17,7 +17,8 @@ the numpy boundary with ``u32_bits`` / ``u32_from_bits``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+import functools
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -25,7 +26,7 @@ import torch
 __all__ = ["PacketType", "PacketBatch", "header_bytes", "request_bytes",
            "response_bytes", "u32_bits", "u32_from_bits", "batch_from_arrays",
            "batch_to_arrays", "FIELDS", "widths", "flat_size", "flat_views",
-           "flat_of", "pack_flat"]
+           "flat_of", "pack_flat", "Layout", "layout", "write_request"]
 
 # PacketBatch fields that hold uint32 values as int32 bit patterns.
 U32_FIELDS = ("packet_id", "codes")
@@ -104,21 +105,11 @@ class PacketBatch:
         Fields are **CPU tensors**: requests model packets arriving from the
         wire, and the executor moves a batch to the device once.  Admission
         glue (pad, coalesce) therefore stays on the host."""
-        features = np.asarray(features, dtype=np.int32)
+        features, mids, vids = _request_fields(
+            features, mid=mid, vid=vid, max_features=max_features,
+            max_versions=max_versions)
         B, F = features.shape
-        Fmax = max_features or F
-        if F > Fmax:
-            raise ValueError(f"{F} features > plane max {Fmax}")
-        mids = np.broadcast_to(np.asarray(mid, np.int32), (B,))
-        vids = np.broadcast_to(np.asarray(vid, np.int32), (B,))
-        if max_versions is not None and vids.size and (
-            vids.min() < 0 or vids.max() >= max_versions
-        ):
-            raise ValueError(
-                f"vid range [{vids.min()}, {vids.max()}] outside the plane's "
-                f"{max_versions} model-zoo versions"
-            )
-        feats = np.zeros((B, Fmax), dtype=np.int32)
+        feats = np.zeros((B, max_features or F), dtype=np.int32)
         feats[:, :F] = features
         return cls(
             packet_id=torch.arange(B, dtype=torch.int32),
@@ -170,15 +161,27 @@ def widths(pb: PacketBatch) -> tuple[int, int, int]:
     return (pb.features.shape[1], pb.codes.shape[1], pb.svm_acc.shape[1])
 
 
-def _layout(B: int, F: int, T: int, H: int):
-    """(field, offset, shape) of each field in the flat buffer: the six
-    header fields of B each, then features, codes and svm_acc row-major."""
-    off = 0
-    for name in FIELDS:
-        shape = {"features": (B, F), "codes": (B, T),
-                 "svm_acc": (B, H)}.get(name, (B,))
-        yield name, off, shape
-        off += int(np.prod(shape))
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """Where each field of a B-packet batch lies in the flat buffer, as
+    plain ints, in ``FIELDS`` order: the six header fields of B each, then
+    features, codes and svm_acc row-major."""
+
+    offsets: tuple[int, ...]
+    sizes: tuple[int, ...]
+    shapes: tuple[tuple[int, ...], ...]
+    row_sizes: tuple[int, ...]     # elements a packet
+
+
+@functools.lru_cache(maxsize=256)
+def layout(B: int, F: int, T: int, H: int) -> Layout:
+    """The flat layout of a (B, F, T, H) batch, computed once per shape
+    (bounded: an executor outside admission may see any B)."""
+    row_sizes = (1, 1, 1, 1, 1, 1, F, T, H)
+    shapes = ((B,),) * 6 + ((B, F), (B, T), (B, H))
+    sizes = tuple(B * w for w in row_sizes)
+    offsets = tuple(sum(sizes[:i]) for i in range(len(sizes)))
+    return Layout(offsets, sizes, shapes, row_sizes)
 
 
 def flat_size(B: int, F: int, T: int, H: int) -> int:
@@ -190,21 +193,22 @@ def flat_views(flat: torch.Tensor, B: int, F: int, T: int,
                H: int) -> PacketBatch:
     """The batch whose fields are contiguous views of ``flat`` (int32
     ``[flat_size(B, F, T, H)]``), in the flat layout."""
-    return PacketBatch(**{name: flat[off:off + int(np.prod(shape))]
-                          .view(shape)
-                          for name, off, shape in _layout(B, F, T, H)})
+    p = flat.split_with_sizes(layout(B, F, T, H).sizes)
+    return PacketBatch(p[0], p[1], p[2], p[3], p[4], p[5], p[6].view(B, F),
+                       p[7].view(B, T), p[8].view(B, H))
 
 
 def pack_flat(pb: PacketBatch, bucket: int, flat: torch.Tensor) -> None:
     """Write the host batch ``pb``, padded with zero packets to ``bucket``,
     into ``flat`` (host int32 ``[flat_size(bucket, F, T, H)]``) in the flat
     layout; numpy copies, a few microseconds a field."""
-    B, (F, T, H) = pb.batch, widths(pb)
+    B, lay = pb.batch, layout(bucket, *widths(pb))
     out = flat.numpy()
-    for name, off, shape in _layout(bucket, F, T, H):
-        n = B * int(np.prod(shape[1:]))
+    for name, off, size, row in zip(FIELDS, lay.offsets, lay.sizes,
+                                    lay.row_sizes):
+        n = B * row
         out[off:off + n] = getattr(pb, name).numpy().reshape(-1)
-        out[off + n:off + int(np.prod(shape))] = 0
+        out[off + n:off + size] = 0
 
 
 def flat_of(pb: PacketBatch) -> torch.Tensor | None:
@@ -216,13 +220,67 @@ def flat_of(pb: PacketBatch) -> torch.Tensor | None:
     B, (F, T, H) = pb.batch, widths(pb)
     if base.numel() != flat_size(B, F, T, H):
         return None
+    lay = layout(B, F, T, H)
     start = base.storage_offset()
-    for name, off, shape in _layout(B, F, T, H):
+    for name, off, shape in zip(FIELDS, lay.offsets, lay.shapes):
         x = getattr(pb, name)
         if (x._base is not base or x.storage_offset() != start + off
-                or tuple(x.shape) != shape or not x.is_contiguous()):
+                or x.shape != shape or not x.is_contiguous()):
             return None
     return base
+
+
+# --------------------------------------------------------------------------
+# The request builder: REQUEST packets written in place into the flat layout
+# --------------------------------------------------------------------------
+def _request_fields(features, *, mid=0, vid=0,
+                    max_features: int | None = None,
+                    max_versions: int | None = None
+                    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A request's features (int32 ``[B, F]``) and its per-packet MIDs and
+    VIDs (int32 ``[B]``, broadcast views), checked at the request boundary:
+    more features than ``max_features``, or a VID outside
+    ``[0, max_versions)``, raise ``ValueError``."""
+    features = np.asarray(features, dtype=np.int32)
+    B, F = features.shape
+    Fmax = max_features or F
+    if F > Fmax:
+        raise ValueError(f"{F} features > plane max {Fmax}")
+    mids = np.broadcast_to(np.asarray(mid, np.int32), (B,))
+    vids = np.broadcast_to(np.asarray(vid, np.int32), (B,))
+    if max_versions is not None and vids.size and (
+        vids.min() < 0 or vids.max() >= max_versions
+    ):
+        raise ValueError(
+            f"vid range [{vids.min()}, {vids.max()}] outside the plane's "
+            f"{max_versions} model-zoo versions"
+        )
+    return features, mids, vids
+
+
+def write_request(rows: Sequence[np.ndarray], features, *, mid=0, vid=0,
+                  max_versions: int | None = None) -> None:
+    """Write a REQUEST batch into the first B rows of a flat buffer, whose
+    fields ``rows`` holds as numpy views in ``FIELDS`` order (features
+    ``[bucket, Fmax]``): packet ids 0..B-1, ``ptype`` REQUEST, ``mid`` and
+    ``vid``, ``rslt`` -1, ``rid``, codes and partial sums 0, the features
+    zero-extended to Fmax: the rows ``PacketBatch.make_request`` builds,
+    checked as it checks them.  The rows past B are the caller's."""
+    pid, ptype, mids, vids, rslt, rid, feats, codes, acc = rows
+    features, m, v = _request_fields(features, mid=mid, vid=vid,
+                                     max_features=feats.shape[1],
+                                     max_versions=max_versions)
+    B, F = features.shape
+    pid[:B] = np.arange(B, dtype=np.int32)
+    ptype[:B] = PacketType.REQUEST
+    mids[:B] = m
+    vids[:B] = v
+    rslt[:B] = -1
+    rid[:B] = 0
+    feats[:B, :F] = features
+    feats[:B, F:] = 0
+    codes[:B] = 0
+    acc[:B] = 0
 
 
 # --------------------------------------------------------------------------

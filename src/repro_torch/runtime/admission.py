@@ -17,9 +17,10 @@ bit-identical to classifying its batch alone.
 The glue runs on the host: requests arrive as CPU tensors
 (``PacketBatch.make_request``) and the executor moves the padded batch to
 the device once.  For an executor on the card admission pads straight into
-one pinned buffer in the flat layout (``pad_to_bucket(..., pin=True)``,
-``core/packets.py``), so the move is one asynchronous copy, and a result
-comes back the same way (``land_on_host``).
+one pinned buffer in the flat layout (``pad_to_bucket(..., into=)``,
+``core/packets.py``), taken from the runtime's pool (``staging.py``), so
+the move is one asynchronous copy, and a result comes back the same way
+(``land_on_host``).
 """
 from __future__ import annotations
 
@@ -31,11 +32,11 @@ import torch
 from repro_torch.core.packets import (
     PacketBatch,
     flat_of,
-    flat_size,
     flat_views,
     pack_flat,
     widths,
 )
+from repro_torch.runtime.staging import Staging
 
 __all__ = ["bucket_size", "bucket_ladder", "pad_to_bucket", "trim",
            "coalesce", "split", "land_on_host"]
@@ -64,21 +65,22 @@ def bucket_ladder(max_batch: int, granularity: int = 1) -> tuple[int, ...]:
 
 
 def pad_to_bucket(pb: PacketBatch, bucket: int, *,
-                  pin: bool = False) -> PacketBatch:
+                  into: Staging | None = None) -> PacketBatch:
     """Pad a request batch to ``bucket`` packets with a passthrough tail
     (``ptype = FORWARD`` (0), zero features and intermediates), on the
-    batch's own device.  ``pin=True`` (a host batch bound for the card)
-    writes batch and tail into one new pinned buffer in the flat layout,
-    even when no padding is needed."""
+    batch's own device.  ``into``, a staging buffer of ``bucket`` packets at
+    the batch's widths (a host batch bound for the card: pinned, from the
+    runtime's pool), takes batch and tail in the flat layout, even when no
+    padding is needed; the result is its views."""
     B = pb.batch
     if bucket < B:
         raise ValueError(f"bucket {bucket} smaller than batch {B}")
-    if pin:
-        shape = (bucket, *widths(pb))
-        flat = torch.empty(flat_size(*shape), dtype=torch.int32,
-                           pin_memory=True)
-        pack_flat(pb, bucket, flat)
-        return flat_views(flat, *shape)
+    if into is not None:
+        if into.shape != (bucket, *widths(pb)):
+            raise ValueError(f"staging buffer of shape {into.shape} for a "
+                             f"batch of {(bucket, *widths(pb))}")
+        pack_flat(pb, bucket, into.flat)
+        return into.batch
     if bucket == B:
         return pb
     return pb.map(lambda x: torch.cat(

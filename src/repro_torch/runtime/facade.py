@@ -14,15 +14,23 @@ captured CUDA graph per bucket (``graphs.py``), so ``warm`` captures the
 ladder and ``cache_size`` counts the captures, as the reference counts its
 compiled traces.  For an executor on the card a host batch is padded
 straight into one pinned buffer, moved in one copy, and ``run_host`` lands
-the result in pinned memory the same way.
+the result in pinned memory the same way.  The staging buffers are the
+runtime's own (``staging.py``), reused per bucket; ``run_request`` writes
+a REQUEST batch straight into one, with no other host copy of it.
 """
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
-from repro_torch.core.packets import PacketBatch
+from repro_torch.core.packets import (
+    PacketBatch,
+    flat_views,
+    widths,
+    write_request,
+)
 from repro_torch.core.plane import PlaneProfile
 from repro_torch.runtime import trace
 from repro_torch.runtime.admission import (
@@ -35,6 +43,7 @@ from repro_torch.runtime.admission import (
     trim,
 )
 from repro_torch.runtime.executors import Executor, SingleSwitchExecutor
+from repro_torch.runtime.staging import Staging, StagingPool
 
 __all__ = ["DataplaneRuntime"]
 
@@ -44,6 +53,8 @@ class DataplaneRuntime:
 
     def __init__(self, executor: Executor) -> None:
         self.executor = executor
+        dev = getattr(executor, "device", None)
+        self._staging = StagingPool("cpu" if dev is None else dev)
 
     @classmethod
     def for_profile(cls, profile: PlaneProfile, *, mode: str | None = None,
@@ -57,14 +68,31 @@ class DataplaneRuntime:
         """The padded shape a batch of ``batch`` packets executes at."""
         return bucket_size(batch, self.executor.granularity)
 
-    def admit(self, batch: PacketBatch) -> PacketBatch:
-        """``batch`` at its bucket shape, as the executor takes it: pinned
-        and flat for a host batch bound for the card."""
-        dev = getattr(self.executor, "device", None)
-        pin = (dev is not None and torch.device(dev).type == "cuda"
-               and batch.device.type == "cpu")
+    def admit(self, batch: PacketBatch) -> tuple[PacketBatch,
+                                                 Staging | None]:
+        """``batch`` at its bucket shape, as the executor takes it, and the
+        staging buffer that holds it: a host batch bound for the card is
+        written, flat, into a pinned buffer of the runtime's pool (else
+        None).  ``_execute`` hands the buffer back."""
         with trace.span("admit"):
-            return pad_to_bucket(batch, self.bucket(batch.batch), pin=pin)
+            bucket, staged = self.bucket(batch.batch), None
+            if self._staging.device.type == "cuda" and \
+                    batch.device.type == "cpu":
+                staged = self._staging.checkout(bucket, *widths(batch))
+            return pad_to_bucket(batch, bucket, into=staged), staged
+
+    def _execute(self, padded: PacketBatch,
+                 staged: Staging | None) -> PacketBatch:
+        """The executor's classify of an admitted batch; its staging
+        buffer goes back to the pool once the executor has taken it."""
+        out = None
+        try:
+            with trace.span("executor"):
+                out = self.executor.classify(padded)
+        finally:
+            if staged is not None:
+                self._staging.release(staged, out)
+        return out
 
     def run(self, batch: PacketBatch) -> PacketBatch:
         """Classify a flat request batch of any size.
@@ -76,10 +104,7 @@ class DataplaneRuntime:
         B = batch.batch
         if B == 0:
             return batch
-        padded = self.admit(batch)
-        with trace.span("executor"):
-            out = self.executor.classify(padded)
-        return trim(out, B)
+        return trim(self._execute(*self.admit(batch)), B)
 
     def run_host(self, batch: PacketBatch) -> PacketBatch:
         """``run`` variant that lands the result on the host (CPU tensors):
@@ -87,11 +112,37 @@ class DataplaneRuntime:
         B = batch.batch
         if B == 0:
             return batch
-        padded = self.admit(batch)
-        with trace.span("executor"):
-            out = self.executor.classify(padded)
+        out = self._execute(*self.admit(batch))
         with trace.span("copy_out"):
             return trim(land_on_host(out), B)
+
+    def run_request(self, features, *, mid=0, vid=0,
+                    row_widths: tuple[int, int, int],
+                    max_versions: int | None = None) -> PacketBatch:
+        """``run`` of a REQUEST batch written once, in place, into a staging
+        buffer of the runtime's pool at its bucket: the same batch, bit for
+        bit, and the same answer as ``run(PacketBatch.make_request(features,
+        mid=mid, vid=vid, max_features=F, n_trees=T, n_hyperplanes=H,
+        max_versions=max_versions))`` for ``row_widths`` (F, T, H), with its
+        checks.  The buffer is pinned for an executor on the card, plain
+        host memory otherwise.  An empty request is answered at once, with
+        an empty batch at ``row_widths``."""
+        features = np.asarray(features, dtype=np.int32)
+        if not len(features):
+            return flat_views(torch.zeros(0, dtype=torch.int32), 0,
+                              *row_widths)
+        B = len(features)
+        with trace.span("admit"):
+            staged = self._staging.checkout(self.bucket(B), *row_widths)
+            staged.zero_tail(B)
+        try:
+            with trace.span("request"):
+                write_request(staged.rows, features, mid=mid, vid=vid,
+                              max_versions=max_versions)
+        except BaseException:
+            self._staging.release(staged)
+            raise
+        return trim(self._execute(staged.batch, staged), B)
 
     def warm(self, make_batch, max_batch: int) -> tuple[int, ...]:
         """Drive every admission bucket up to ``bucket(max_batch)`` once
@@ -144,3 +195,8 @@ class DataplaneRuntime:
         """Captured classifies across the executor — with admission on, one
         per bucket (and mode)."""
         return self.executor.cache_size()
+
+    def staging_stats(self) -> dict[str, int]:
+        """The staging pool's checkouts: ``reused`` a buffer, ``made`` a
+        new one (a warmed steady load reuses nearly every time)."""
+        return self._staging.stats()

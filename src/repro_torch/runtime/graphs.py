@@ -11,8 +11,9 @@ hops]), each holding
 
 * a static device buffer, the whole batch in the flat layout
   (``core/packets.py``), written by ONE copy from a pinned host buffer
-  that admission padded straight into (``admission.pad_to_bucket(...,
-  pin=True)``), or field by field from any other batch;
+  of the runtime's staging pool that admission padded, or the request
+  was written, straight into (``runtime/staging.py``), or field by field
+  from any other batch;
 * the captured classify (``torch.cuda.graph``), which reads that buffer
   and the executor's resident program (``core/plane.py``,
   ``resident_program``: written in place, so the graph keeps reading the

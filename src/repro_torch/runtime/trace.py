@@ -21,7 +21,9 @@ collector's pauses are ``gc`` spans under the same rules (a
 ``gc.callbacks`` hook).
 
 The spans: ``classify`` (``ZooServer.classify``, whole), ``request`` (the
-request build), ``admit`` (admission's pad into the bucket), ``executor``
+request build: ``make_request``, or ``classify``'s write in place into its
+staging buffer), ``admit`` (admission's pad into the bucket, or
+``classify``'s checkout of a staging buffer and its zero tail), ``executor``
 (the executor's classify: its lock, stage, replay and clone), ``lock`` (the
 wait for the executor's lock), ``capture`` (a graph captured), ``copy_out``
 (the result to the host, which waits for the card), ``cut`` (the async

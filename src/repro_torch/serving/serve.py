@@ -101,6 +101,13 @@ class ZooServer:
     def profile(self) -> PlaneProfile:
         return self._profile
 
+    @property
+    def row_widths(self) -> tuple[int, int, int]:
+        """A request packet's features, tree codes and SVM sums, (F, T, H),
+        at this zoo's plane profile."""
+        prof = self._profile
+        return prof.max_features, prof.max_trees, prof.max_hyperplanes
+
     def install(self, model_or_program, *, vid: int, tag: str = "") -> int:
         """Install a trained model (or pre-translated program) into slot
         ``vid`` of its pipeline.  Returns the vid for chaining."""
@@ -127,13 +134,13 @@ class ZooServer:
 
     def make_request(self, features, *, mid: int = 0, vid=0) -> PacketBatch:
         """Build a REQUEST batch (host tensors) sized to this zoo's plane
-        profile — the one request-construction path of every classify."""
-        prof = self.profile
+        profile: the request of ``submit``, the coalesced and the open-loop
+        paths (``classify`` writes the same batch in place)."""
+        F, T, H = self.row_widths
         with trace.span("request"):
             return PacketBatch.make_request(
-                features, mid=mid, vid=vid, max_features=prof.max_features,
-                n_trees=prof.max_trees, n_hyperplanes=prof.max_hyperplanes,
-                max_versions=prof.max_versions)
+                features, mid=mid, vid=vid, max_features=F, n_trees=T,
+                n_hyperplanes=H, max_versions=self.profile.max_versions)
 
     def classify(self, features, *, mid: int, vid: int | np.ndarray,
                  device_out: bool = False) -> np.ndarray | PacketBatch:
@@ -142,8 +149,11 @@ class ZooServer:
         ``device_out=True`` returns the classified ``PacketBatch`` on the
         device instead of the host ``rslt`` array."""
         with trace.span("classify"):
-            out = self.runtime.run(self.make_request(features, mid=mid,
-                                                     vid=vid))
+            # the request is written once, straight into a staging buffer
+            # at its bucket (same batch and checks as make_request)
+            out = self.runtime.run_request(
+                features, mid=mid, vid=vid, row_widths=self.row_widths,
+                max_versions=self.profile.max_versions)
             if device_out:
                 return out
             with trace.span("copy_out"):

@@ -30,7 +30,10 @@ graph per admission bucket): replay against eager and the twin on the 204
 draws in three modes, with exact launches per replay; install, evict and
 swap between replays in place; two threads replaying at once; a capture
 that fails raises and keeps no entry; a capture completes while garbage
-cycles hold other graphs and the collector runs at every allocation.  The fleet (``FleetRuntime`` on its
+cycles hold other graphs and the collector runs at every allocation; the
+pinned staging buffers a classify writes its request into are reused
+only once the copy that reads them has run (back-to-back calls behind a
+busy card, and two threads).  The fleet (``FleetRuntime`` on its
 hop pool): the 8 fault-lane deployments replayed against eager and the
 twin with exact launches, a retarget to another hosting count between
 replays with no resident ``data_ptr`` moved, and a ``DeviceFailure`` raised
@@ -836,6 +839,62 @@ def test_concurrent_replays_from_two_threads(cuda, satdap_zoo):
     assert not any(th.is_alive() for th in threads)
     assert errors == []
     assert zoo.cache_size() == 4
+
+
+def test_reused_staging_never_feeds_a_copy_still_pending(cuda, satdap_zoo):
+    """``classify`` writes each request into a pinned staging buffer of the
+    runtime's pool, reused once the copy that reads it has run.  Eight
+    back-to-back ``device_out`` calls of distinct batches at one bucket,
+    with no host sync between them and the card held busy first, so every
+    stage copy is still pending when the next call checks out; then two
+    threads classifying distinct batches: every answer equals its own
+    eager one."""
+    import threading
+
+    models, X = satdap_zoo
+    zoo = ZooServer(PROFILE)
+    for vid, m in models.items():
+        zoo.install(m, vid=vid)
+    rng = np.random.default_rng(11)
+    cases = []
+    for B in (300, 257, 512, 400, 301, 511, 290, 500):     # bucket 512
+        vid = rng.integers(0, 4, B).astype(np.int32)
+        mid = np.asarray([(0, 1, 2, 0)[v] for v in vid], np.int32)
+        Xb = X[rng.integers(0, len(X), B)]
+        want = zoo.engine.classify(zoo.packed, zoo.make_request(
+            Xb, mid=mid, vid=vid)).rslt.cpu()
+        cases.append(((Xb, mid, vid), want))
+    for (Xb, mid, vid), _ in cases:       # capture the bucket's graph
+        zoo.classify(Xb, mid=mid, vid=vid)
+    torch.cuda.synchronize()
+    before = zoo.runtime.staging_stats()
+    torch.cuda._sleep(200_000_000)          # ~0.1 s of the card busy
+    outs = [zoo.classify(Xb, mid=mid, vid=vid, device_out=True)
+            for (Xb, mid, vid), _ in cases]
+    for out, (_, want) in zip(outs, cases):
+        assert torch.equal(out.rslt.cpu(), want)
+    after = zoo.runtime.staging_stats()
+    assert after["made"] > before["made"]
+    errors = []
+
+    def worker(order):
+        try:
+            for _ in range(20):
+                for (Xb, mid, vid), want in order:
+                    got = zoo.classify(Xb, mid=mid, vid=vid)
+                    if not np.array_equal(got, want.numpy()):
+                        errors.append(len(Xb))
+        except Exception as e:   # reported below
+            errors.append(e)
+    threads = [threading.Thread(target=worker, args=(o,))
+               for o in (cases[:4], cases[4:])]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    assert not any(th.is_alive() for th in threads)
+    assert errors == []
+    assert zoo.cache_size() == 1
 
 
 def test_failing_capture_raises_and_keeps_no_entry(cuda, monkeypatch):

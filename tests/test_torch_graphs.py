@@ -31,6 +31,7 @@ from repro_torch.core.packets import (
     flat_of,
     flat_size,
     flat_views,
+    layout,
     pack_flat,
 )
 from repro_torch.core.translator import translate
@@ -40,6 +41,7 @@ from repro_torch.runtime import (
     SingleSwitchExecutor,
     bucket_ladder,
 )
+from repro_torch.runtime.staging import StagingPool
 from repro_torch.serving import ZooServer
 from test_torch_plane import assert_batches_equal, port_packed, port_profile
 
@@ -349,6 +351,211 @@ def test_flat_layout_round_trips():
     assert flat_of(pb) is None
     assert flat_of(padded.map(lambda x: x[:5])) is None
     assert flat_of(padded.map(lambda x: x.clone())) is None
+
+
+def _derived_layout(B, F, T, H):
+    """(field, offset, shape) of each field, derived field by field: the
+    flat layout as it was before it was cached, the tests' reference."""
+    off = 0
+    for name in FIELDS:
+        shape = {"features": (B, F), "codes": (B, T),
+                 "svm_acc": (B, H)}.get(name, (B,))
+        yield name, off, shape
+        off += int(np.prod(shape))
+
+
+def _derived_pack(pb, bucket, flat):
+    """``pack_flat`` by the derived layout."""
+    B, F, T, H = (pb.batch, pb.features.shape[1], pb.codes.shape[1],
+                  pb.svm_acc.shape[1])
+    out = flat.numpy()
+    for name, off, shape in _derived_layout(bucket, F, T, H):
+        n = B * int(np.prod(shape[1:]))
+        out[off:off + n] = getattr(pb, name).numpy().reshape(-1)
+        out[off + n:off + int(np.prod(shape))] = 0
+
+
+@pytest.mark.parametrize("widths", [(60, 8, 12), (7, 3, 2), (0, 0, 0),
+                                    (4, 0, 1)])
+@pytest.mark.parametrize("B", [1, 5, 64, 4095, 4096])
+def test_cached_layout_gives_the_derived_offsets_and_bytes(B, widths):
+    """The layout computed once per shape puts every field where the
+    field-by-field derivation puts it: ``flat_views``' offsets and shapes,
+    ``flat_size``, and ``pack_flat``'s bytes (a batch of B - 1 packets,
+    padded) are the same; ``flat_of`` finds the buffer under the views and
+    none under the three batches that are not exactly its views."""
+    F, T, H = widths
+    rng = np.random.default_rng(B + F)
+    want = list(_derived_layout(B, F, T, H))
+    size = sum(int(np.prod(shape)) for _, _, shape in want)
+    lay = layout(B, F, T, H)
+    assert flat_size(B, F, T, H) == size == lay.offsets[-1] + lay.sizes[-1]
+    flat = torch.arange(size, dtype=torch.int32)
+    views = flat_views(flat, B, F, T, H)
+    for name, off, shape in want:
+        x = getattr(views, name)
+        assert x.storage_offset() == off and tuple(x.shape) == shape, name
+        assert x.is_contiguous() and x._base is flat, name
+    assert flat_of(views) is flat
+    pb = PacketBatch.make_request(
+        rng.integers(0, 256, (B - 1, F)), mid=rng.integers(0, 3, B - 1),
+        vid=2, n_trees=T, n_hyperplanes=H)
+    pb.codes.random_(-2**31, 2**31)
+    got, ref = (torch.full((size,), 99, dtype=torch.int32) for _ in range(2))
+    pack_flat(pb, B, got)
+    _derived_pack(pb, B, ref)
+    assert torch.equal(got, ref)
+    assert flat_of(pb) is None
+    assert flat_of(views.map(lambda x: x[:B - 1])) is None
+    assert flat_of(views.map(lambda x: x.clone())) is None
+
+
+def _request_args(B, per_packet, seed):
+    rng = np.random.default_rng(seed)
+    if per_packet:
+        vid = rng.integers(0, 4, B).astype(np.int32)
+        mid = np.asarray([MIDS[v] for v in vid], np.int32)
+    else:
+        mid, vid = 1, 1
+    return dict(features=rng.integers(0, 256, (B, 30)), mid=mid, vid=vid)
+
+
+def _staged_by(zoo, monkeypatch):
+    """Record, on every executor call handed a flat batch, its buffer and
+    a copy of its bits taken as it arrives."""
+    seen = []
+    classify = zoo.executor.classify
+
+    def recording(batch):
+        flat = flat_of(batch)
+        if flat is not None:
+            seen.append((flat, flat.clone()))
+        return classify(batch)
+    monkeypatch.setattr(zoo.executor, "classify", recording)
+    return seen
+
+
+@pytest.mark.parametrize("per_packet", [False, True])
+@pytest.mark.parametrize("B", [33, 63, 64])
+def test_request_written_in_place_is_make_requests_padded_batch(
+        zoos, monkeypatch, B, per_packet):
+    """``classify`` writes its request straight into a staging buffer at
+    its bucket (64 for B below, one under and at it, scalar and per-packet
+    MID / VID, 30 of the plane's 36 features): the executor is handed the
+    batch ``pack_flat(make_request(...), bucket, .)`` writes, element for
+    element, and answers as ``run`` of ``make_request`` does."""
+    jzoo, _ = zoos
+    zoo = _port_zoo(jzoo)
+    seen = _staged_by(zoo, monkeypatch)
+    args = _request_args(B, per_packet, B)
+    prof = zoo.profile
+    want = torch.full((flat_size(64, prof.max_features, prof.max_trees,
+                                 prof.max_hyperplanes),), 99,
+                      dtype=torch.int32)
+    pb = zoo.make_request(args["features"], mid=args["mid"], vid=args["vid"])
+    pack_flat(pb, 64, want)
+    for _ in range(2):      # a new buffer, then the same one reused
+        got = zoo.classify(args["features"], mid=args["mid"],
+                           vid=args["vid"], device_out=True)
+        assert torch.equal(seen[-1][1], want)
+        seen[-1][0].fill_(99)      # whatever a reused buffer held
+        ref = zoo.runtime.run(pb)
+        for f in FIELDS:
+            assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    assert len(seen) == 2 and seen[0][0] is seen[1][0]
+    assert zoo.runtime.staging_stats() == {"reused": 1, "made": 1}
+
+
+@pytest.mark.parametrize("bad", ["vid", "features"])
+def test_request_written_in_place_is_checked_as_make_request(zoos, bad):
+    """An out-of-range VID and more features than the plane's raise the
+    ``ValueError`` ``make_request`` raises, and the staging buffer goes
+    back to the pool."""
+    jzoo, X = zoos
+    zoo = _port_zoo(jzoo)
+    kw = dict(features=X[:9], mid=0, vid=0)
+    if bad == "vid":
+        kw["vid"] = np.asarray([0] * 8 + [4], np.int32)
+    else:
+        kw["features"] = np.zeros((9, 37), np.int32)
+    with pytest.raises(ValueError) as built:
+        zoo.make_request(**kw)
+    with pytest.raises(ValueError) as written:
+        zoo.classify(**kw)
+    assert str(written.value) == str(built.value)
+    zoo.classify(X[:9], mid=0, vid=0)
+    assert zoo.runtime.staging_stats() == {"reused": 1, "made": 1}
+
+
+def test_empty_request_is_answered_without_a_buffer(zoos):
+    """A request of no packets comes back at once as the empty batch
+    ``make_request`` builds at the zoo's row widths, field for field, and
+    touches neither the staging pool nor the executor."""
+    jzoo, _ = zoos
+    zoo = _port_zoo(jzoo)
+    X = np.zeros((0, 30), np.int32)
+    got = zoo.classify(X, mid=0, vid=0, device_out=True)
+    want = zoo.make_request(X, mid=0, vid=0)
+    for f in FIELDS:
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.shape == b.shape and a.dtype == b.dtype, f
+    assert zoo.classify(X, mid=0, vid=0).shape == (0,)
+    assert zoo.runtime.staging_stats() == {"reused": 0, "made": 0}
+    assert zoo.runtime.cache_size() == 0
+
+
+@pytest.mark.parametrize("graphs", [True, False])
+def test_run_n_is_not_overwritten_through_a_reused_buffer(zoos, graphs):
+    """Two classifies at one bucket through the staging pool: the first
+    answer is a copy of its own.  With the graph cache the executor copies
+    the buffer, so the second call reuses it; eagerly on the CPU the
+    answer holds views of it, so it leaves the pool with the answer."""
+    jzoo, X = zoos
+    zoo = _port_zoo(jzoo, graphs=graphs)
+    a = _request_args(60, True, 1)
+    b = _request_args(61, True, 2)
+    first = zoo.classify(**a, device_out=True)
+    kept = first.map(lambda x: x.clone())
+    second = zoo.classify(**b, device_out=True)
+    for f in FIELDS:
+        assert torch.equal(getattr(first, f), getattr(kept, f)), f
+    assert not torch.equal(first.features, second.features[:60])
+    assert zoo.runtime.staging_stats() == (
+        {"reused": 1, "made": 1} if graphs else {"reused": 0, "made": 2})
+
+
+class _Pending:
+    """A stand-in CUDA event, pending until told otherwise."""
+
+    def __init__(self) -> None:
+        self.done = False
+
+    def record(self, stream) -> None:
+        self.done = False
+
+    def query(self) -> bool:
+        return self.done
+
+
+def test_staging_pool_counts_and_never_hands_out_a_busy_buffer(monkeypatch):
+    """Checkouts count as reused or made; a buffer whose event is pending
+    is not handed out (a new one is made, no wait), and is again once the
+    event completes; shapes keep pools of their own."""
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: None)
+    pool = StagingPool("cpu")
+    a = pool.checkout(8, 3, 2, 1)
+    a.event = _Pending()
+    b = pool.checkout(8, 3, 2, 1)
+    assert b is not a
+    pool.release(a)
+    c = pool.checkout(8, 3, 2, 1)
+    assert c is not a and c is not b
+    a.event.done = True
+    assert pool.checkout(8, 3, 2, 1) is a
+    pool.release(c)
+    assert pool.checkout(8, 3, 2, 1) is c
+    assert pool.checkout(16, 3, 2, 1).shape == (16, 3, 2, 1)
+    assert pool.stats() == {"reused": 2, "made": 4}
 
 
 def test_concurrent_runs_and_writes_never_tear(zoos, satdap):

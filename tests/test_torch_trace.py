@@ -118,7 +118,10 @@ def test_recording_adds_durations_by_name_on_its_thread(nested):
 
 def test_recording_is_per_thread():
     """Threads recording at once, more than the cores, with a short switch
-    interval: each record holds its own thread's spans and no other's."""
+    interval: each record holds its own thread's spans and no other's.
+    The collector is off meanwhile: a pause it takes on a thread is that
+    thread's own ``gc`` span (``test_collector_pause_is_a_gc_span``), and
+    whether one falls inside depends on what earlier tests allocated."""
     n, rounds = 3 * (os.cpu_count() or 1) + 1, 200
     got = [None] * n
     start = threading.Barrier(n)
@@ -134,6 +137,8 @@ def test_recording_is_per_thread():
 
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
+    collecting = gc.isenabled()
+    gc.disable()
     try:
         threads = [threading.Thread(target=work, args=(i,)) for i in range(n)]
         for t in threads:
@@ -142,6 +147,8 @@ def test_recording_is_per_thread():
             t.join(timeout=60)
     finally:
         sys.setswitchinterval(old)
+        if collecting:
+            gc.enable()
     assert not any(t.is_alive() for t in threads)
     for i, spans in enumerate(got):
         assert set(spans) == {f"t{i}"}
@@ -204,13 +211,14 @@ def test_classify_spans_nest_as_the_code_nests(classify_events, child,
 
 
 def test_classify_spans_cover_the_call_in_order(classify_events):
-    """One classify's spans come in the code's order: request, admit,
-    executor, copy out, and none overlaps the next."""
+    """One classify's spans come in the code's order: admit (the staging
+    buffer checked out), request (written in place into it), executor,
+    copy out, and none overlaps the next."""
     ev = sorted(classify_events, key=lambda e: e[1])
     first = [e for e in ev if e[0] == "acorn.classify"][0]
     inner = [e for e in ev if _inside(e, [first]) and e[0] in (
         "acorn.request", "acorn.admit", "acorn.executor", "acorn.copy_out")]
-    assert [e[0] for e in inner] == ["acorn.request", "acorn.admit",
+    assert [e[0] for e in inner] == ["acorn.admit", "acorn.request",
                                      "acorn.executor", "acorn.copy_out"]
     assert all(a[2] <= b[1] for a, b in zip(inner, inner[1:]))
 
