@@ -7,13 +7,15 @@ each switch holds only *its* table entries, a partial ``PackedProgram`` at
 the full profile, and a packet's intermediates (status codes, SVM partial
 sums) ride along between hops — the paper's in-packet intermediate
 transport.  This module is the install side; the execution side is
-``runtime.executors.SequentialPathExecutor``.  The JAX package's deprecated
-``run_sequential`` and ``PipelinedPlane`` shims have no counterpart.
+``runtime.executors.SequentialPathExecutor``.  The hop programs come back
+as a ``PathPrograms``, a list that also records which switch each hop is
+and which program stages of which version it holds, for the executor's
+``path_stats()``.  The JAX package's deprecated ``run_sequential`` and
+``PipelinedPlane`` shims have no counterpart.
 """
 from __future__ import annotations
 
 from repro_torch.core.plane import (
-    PackedProgram,
     PlaneProfile,
     empty_program,
     install_program,
@@ -21,7 +23,21 @@ from repro_torch.core.plane import (
 from repro_torch.core.planner import DeploymentPlan
 from repro_torch.core.translator import TableProgram
 
-__all__ = ["build_device_programs", "build_zoo_device_programs"]
+__all__ = ["PathPrograms", "build_device_programs",
+           "build_zoo_device_programs"]
+
+
+class PathPrograms(list):
+    """A path's partial programs in path order (a list of
+    ``PackedProgram``), with where each sits: ``switches[i]`` is hop i's
+    switch and ``stages[i]`` maps each version it hosts to the program
+    stages of that version it holds, in order (the plans'
+    ``device_stages()``)."""
+
+    def __init__(self, programs, switches, stages) -> None:
+        super().__init__(programs)
+        self.switches = tuple(switches)
+        self.stages = tuple(stages)
 
 
 def build_device_programs(
@@ -29,7 +45,7 @@ def build_device_programs(
     plan: DeploymentPlan,
     profile: PlaneProfile,
     device=None,
-) -> tuple[list[str], list[PackedProgram]]:
+) -> tuple[list[str], PathPrograms]:
     """One partial PackedProgram per programmable switch on the plan's
     path, in path order, on ``device`` (``cuda`` unless the caller asks for
     the CPU).  Each carries its own exec image, built at this install step
@@ -39,7 +55,8 @@ def build_device_programs(
     progs = [install_program(empty_program(profile, device), program, profile,
                              stages=per_dev[d])
              for d in devices]
-    return devices, progs
+    return devices, PathPrograms(
+        progs, devices, [{program.vid: sorted(per_dev[d])} for d in devices])
 
 
 def build_zoo_device_programs(
@@ -47,7 +64,7 @@ def build_zoo_device_programs(
     plans: list[DeploymentPlan],
     profile: PlaneProfile,
     device=None,
-) -> tuple[list[str], list[PackedProgram]]:
+) -> tuple[list[str], PathPrograms]:
     """Merge per-version deployment plans into per-switch *partial zoos*.
 
     Each version's plan may place its stages on different switches of the
@@ -59,7 +76,7 @@ def build_zoo_device_programs(
     if len(programs) != len(plans):
         raise ValueError("one plan per program version required")
     if not plans:
-        return [], []
+        return [], PathPrograms([], [], [])
     path = plans[0].path
     for p in plans[1:]:
         if p.path != path:
@@ -69,13 +86,15 @@ def build_zoo_device_programs(
             )
     devices = [d for d in path
                if any(d in p.device_stages() for p in plans)]
-    progs = []
+    progs, held = [], []
     for d in devices:
-        packed = empty_program(profile, device)
+        packed, own = empty_program(profile, device), {}
         for program, plan in zip(programs, plans):
             stages = plan.device_stages().get(d)
             if stages:
                 packed = install_program(packed, program, profile,
                                          stages=stages, vid=program.vid)
+                own[program.vid] = sorted(stages)
         progs.append(packed)
-    return devices, progs
+        held.append(own)
+    return devices, PathPrograms(progs, devices, held)

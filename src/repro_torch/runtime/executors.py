@@ -31,6 +31,7 @@ from typing import Protocol, runtime_checkable
 
 import torch
 
+from repro_torch.core.distributed_plane import PathPrograms
 from repro_torch.core.packets import PacketBatch
 from repro_torch.core.plane import (
     PackedProgram,
@@ -44,6 +45,7 @@ from repro_torch.core.plane import (
 )
 from repro_torch.core.translator import TableProgram
 from repro_torch.kernels import ops
+from repro_torch.runtime import trace
 from repro_torch.runtime.graphs import GraphCache, Serial
 
 __all__ = ["Executor", "SingleSwitchExecutor", "SequentialPathExecutor",
@@ -151,7 +153,10 @@ class SequentialPathExecutor:
     costs: one launch by default, three in ``"unfused"``, L + 2 in
     ``"layerwise"``; the whole chain is one captured graph per bucket.  The
     device is the programs' own (``cuda`` unless they were built on the
-    CPU); the executor holds resident copies of them.
+    CPU); the executor holds resident copies of them.  Each hop's classify
+    is a ``hop`` span (``runtime/trace.py``) where it runs from Python: the
+    eager path, and a graph's warm-up and capture, not its replays.
+    ``path_stats()`` says what each hop holds.
     """
 
     granularity = 1
@@ -171,12 +176,26 @@ class SequentialPathExecutor:
         self._cache = GraphCache(self._chain, self.device,
                                  (self.mode, len(self.programs))
                                  ) if graphs else None
+        self._stats = _path_stats(device_programs)
 
     def _chain(self, batch: PacketBatch) -> PacketBatch:
         for packed in self.programs:
-            batch = _classify_impl(packed, batch, n_classes=self.n_classes,
-                                   mode=self.mode)
+            with trace.span("hop"):
+                batch = _classify_impl(packed, batch,
+                                       n_classes=self.n_classes,
+                                       mode=self.mode)
         return batch
+
+    def path_stats(self) -> dict:
+        """What the path holds, worked out when its programs were given:
+        ``hops``; ``per_hop``, for each hop in path order its ``switch``,
+        the ``vids`` whose tables it holds entries of, and ``stages`` (vid
+        -> the program stages of that version it holds; ``switch`` and
+        ``stages`` are None unless the programs came as a ``PathPrograms``
+        from the installer); and ``handoff_bytes``, what one packet carries
+        from a hop to the next: its status codes, SVM partial sums and
+        result, int32 each, at the profile's widths."""
+        return self._stats
 
     def classify(self, batch: PacketBatch) -> PacketBatch:
         with self._serial:
@@ -193,9 +212,28 @@ class SequentialPathExecutor:
             raise ValueError("every hop's program must be on one device")
         with self._serial:
             copy_program_(self.programs, device_programs)
+            self._stats = _path_stats(device_programs)
 
     def cache_size(self) -> int:
         return 0 if self._cache is None else len(self._cache)
+
+
+def _path_stats(device_programs) -> dict:
+    """``SequentialPathExecutor.path_stats()`` of these hop programs."""
+    placed = isinstance(device_programs, PathPrograms)
+    hops = []
+    for i, p in enumerate(device_programs):
+        held = (p.dt_valid.flatten(1).any(1) | p.pred_enable
+                | p.svm_hvalid.any(1))
+        hops.append({
+            "switch": device_programs.switches[i] if placed else None,
+            "vids": torch.nonzero(held).flatten().tolist(),
+            "stages": (dict(device_programs.stages[i]) if placed
+                       else None)})
+    first = device_programs[0]
+    T, H = first.dt_cv.shape[2], first.svm_bias.shape[1]
+    return {"hops": len(hops), "per_hop": hops,
+            "handoff_bytes": (T + H + 1) * 4}
 
 
 # the fields a classify rewrites: what a lane writes back into its rows

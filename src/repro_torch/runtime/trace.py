@@ -25,9 +25,12 @@ request build: ``make_request``, or ``classify``'s write in place into its
 staging buffer), ``admit`` (admission's pad into the bucket, or
 ``classify``'s checkout of a staging buffer and its zero tail), ``executor``
 (the executor's classify: its lock, stage, replay and clone), ``lock`` (the
-wait for the executor's lock), ``capture`` (a graph captured), ``copy_out``
-(the result to the host, which waits for the card), ``cut`` (the async
-front's cut and coalesce), ``demux`` (its accounting and demux), ``gc``.
+wait for the executor's lock), ``capture`` (a graph captured), ``hop``
+(one hop's classify in ``SequentialPathExecutor``'s chain, where the chain
+runs from Python: eagerly, or in a graph's warm-up and capture; a replay
+runs no span), ``copy_out`` (the result to the host, which waits for the
+card), ``cut`` (the async front's cut and coalesce), ``demux`` (its
+accounting and demux), ``gc``.
 """
 from __future__ import annotations
 

@@ -5,7 +5,10 @@ Off, a span is one shared no-op and records nothing.  Under torch's
 profiler on the calling thread, a ``ZooServer`` classify exports
 ``acorn.classify`` over the request build, admission, the executor (over
 its lock) and the copy out, nested as the code nests; the collector's
-pauses are ``acorn.gc``; no graph is captured after warm-up.  Inside a
+pauses are ``acorn.gc``; no graph is captured after warm-up.  On a path
+of switches each hop's classify is an ``acorn.hop`` inside
+``acorn.executor``, and ``path_stats()`` gives the plan's hops, what each
+holds and the bytes a packet carries between them.  Inside a
 dispatch record (``trace.recording``), spans add their durations to the
 record on their own thread.  The fronts' ``latency_stats()`` split a
 dispatch: to the thread + on the thread + back to the loop is the whole
@@ -30,9 +33,18 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.core.mlmodels import DecisionTree
+from repro_torch.core.distributed_plane import build_zoo_device_programs
+from repro_torch.core.mlmodels import DecisionTree, LinearSVM
 from repro_torch.core.plane import PlaneProfile
-from repro_torch.runtime import ImmediatePolicy, SizeOrDeadlinePolicy, trace
+from repro_torch.core.planner import DeviceModel, plan_zoo
+from repro_torch.core.topology import fat_tree
+from repro_torch.core.translator import translate
+from repro_torch.runtime import (
+    ImmediatePolicy,
+    SequentialPathExecutor,
+    SizeOrDeadlinePolicy,
+    trace,
+)
 from repro_torch.serving import AsyncZooServer, ContinuousZooServer, ZooServer
 
 PROFILE = PlaneProfile(max_features=8, max_trees=2, max_layers=6,
@@ -240,6 +252,66 @@ def test_no_capture_after_warm(device):
                              for n in (1, 3, 33, 64)])
     assert sum(e[0] == "acorn.classify" for e in after) == 4
     assert not [e for e in after if e[0] == "acorn.capture"]
+
+
+# ------------------------------------------------------ a path of switches
+def _path(device, graphs):
+    """A tree (vid 0) and a one-hyperplane SVM (vid 1) planned over
+    ``fat_tree(4)`` at 2 stages a switch, served hop by hop; the plans'
+    stages by switch."""
+    rng = np.random.default_rng(0)
+    X = rng.integers(0, 256, (200, 8))
+    y = (X[:, 0] > 128).astype(int) + (X[:, 1] > 100)
+    progs = [translate(DecisionTree(max_depth=4).fit(X, y), vid=0),
+             translate(LinearSVM(multi_class="ovr", epochs=20)
+                       .fit(X, (X[:, 2] > 90).astype(int)), vid=1)]
+    net = fat_tree(4)
+    hosts = net.hosts()
+    plans = plan_zoo(progs, net, hosts[0], hosts[-1],
+                     default_device=DeviceModel(n_stages=2))
+    switches, dps = build_zoo_device_programs(progs, plans, PROFILE, device)
+    ex = SequentialPathExecutor(dps, n_classes=PROFILE.max_classes,
+                                graphs=graphs)
+    held = {d: {p.vid: sorted(plan.device_stages()[d])
+                for p, plan in zip(progs, plans) if d in plan.device_stages()}
+            for d in switches}
+    return ZooServer(PROFILE, executor=ex), ex, held
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+def test_path_hops_are_spans_and_path_stats_the_plan(device):
+    """``path_stats()`` is the plan: each hop's switch, vids and stages, and
+    (T + H + 1) int32 a packet between hops.  Eagerly each classify records
+    one ``acorn.hop`` a hop inside its ``acorn.executor``; a captured
+    graph's replays record none."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: graphs are captured only there")
+    z, ex, held = _path(device, graphs=device == "cuda")
+    stats = ex.path_stats()
+    assert stats["hops"] == len(held) >= 3
+    assert [h["switch"] for h in stats["per_hop"]] == list(held)
+    assert [h["stages"] for h in stats["per_hop"]] == list(held.values())
+    assert [h["vids"] for h in stats["per_hop"]] == \
+        [sorted(v) for v in held.values()]
+    assert {v for h in stats["per_hop"] for v in h["vids"]} == {0, 1}
+    T, H = PROFILE.max_trees, PROFILE.max_hyperplanes
+    assert stats["handoff_bytes"] == (T + H + 1) * 4
+
+    vid = np.arange(40) % 2
+    if device == "cuda":
+        z.classify(_features(40), mid=0, vid=vid)      # captured here
+    ev = _events(lambda: [z.classify(_features(40), mid=0, vid=vid)
+                          for _ in range(2)])
+    execs = [e for e in ev if e[0] == "acorn.executor"]
+    hops = [e for e in ev if e[0] == "acorn.hop"]
+    assert len(execs) == 2
+    assert not [e for e in ev if e[0] == "acorn.capture"]
+    if device == "cuda":
+        assert hops == []
+    else:
+        assert len(hops) == 2 * stats["hops"]
+        assert all(_inside(h, execs) for h in hops)
 
 
 # ------------------------------------------------- the fronts' dispatch split
