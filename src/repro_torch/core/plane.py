@@ -4,8 +4,9 @@ Port of ``src/repro/core/plane.py`` (paper §6).  A physical switch compiles
 its template P4 program once; every model (re)deployment afterwards only
 rewrites match-action entries.  Here table entries are tensors of a
 ``PackedProgram``, and installing or swapping a model is a tensor update;
-classify is one CUDA kernel launch plus plain torch glue (or, in the staged
-modes, three launches or L + 2).
+classify is one CUDA kernel launch, SVM predict and result select included
+(or, in the staged modes and ``ref``, three launches, L + 2 or the twins,
+then the select and predict in plain torch).
 
 One engine hosts both pipelines (paper Fig. 5) — the tree pipeline (walk ->
 dt_predict -> multitree_voting) and the SVM pipeline (svm_mul partials ->
@@ -41,7 +42,8 @@ import torch
 
 from repro_torch.core.packets import PacketBatch, PacketType, u32_bits
 from repro_torch.core.translator import MID_SVM, TableProgram
-from repro_torch.kernels import ops, tiling
+from repro_torch.kernels import ops, ref, tiling
+from repro_torch.kernels.classify_fused import classify_hop
 
 __all__ = [
     "PlaneProfile",
@@ -108,8 +110,9 @@ class ExecImage:
     ``fused`` is the operand group of every classify mode: the fused kernel
     reads all of it, the staged kernels its ``walk``, ``leaves`` and
     ``svm`` parts.  Its bias block is
-    **zeros**: ``_classify_impl`` adds ``svm_bias`` outside the kernel so
-    partial sums compose across devices (bias once, on the owning device).
+    **zeros**: ``_classify_impl`` adds ``svm_bias`` to the sums only for
+    the sign test, never to the sums handed on, so partial sums compose
+    across devices (bias once, on the owning device).
     """
 
     fused: tiling.ClassifyFusedOperands
@@ -515,16 +518,24 @@ def packed_from_arrays(arrays: dict, profile: PlaneProfile,
 # --------------------------------------------------------------------------
 def _classify_impl(packed: PackedProgram, pb: PacketBatch, *, n_classes: int,
                    mode: str | None) -> PacketBatch:
-    V = packed.n_versions
-    # Classify-boundary VID validation: out-of-range packets are processed
-    # against slot 0's tables and their result is forced to -1.
-    vid_ok = (pb.vid >= 0) & (pb.vid < V)
-    vid = torch.where(vid_ok, pb.vid, 0)
     img = packed.image if packed.image is not None else \
         build_exec_image(packed)
-    # Both pipelines in ONE kernel launch (three or L + 2 in the staged
-    # modes, every stage bound to the same image); zero bias into the
-    # kernels — svm_bias is added below, outside, so partial sums compose.
+    select = (packed.pred_enable, packed.svm_bias, packed.svm_hvalid,
+              packed.svm_pred_table, packed.svm_pred_enable)
+    if ops.resolve_mode(mode, pb.codes.device) == "cuda":
+        # ONE launch: the walk, the vote, the SVM sums, the SVM predict and
+        # the result select, the vid clamp in the kernel
+        codes, acc, rslt = classify_hop(
+            pb.codes, pb.features, pb.vid, pb.ptype, pb.mid, pb.rslt,
+            pb.svm_acc, packed.layer_shift, img.fused, *select, n_classes,
+            mid_svm=MID_SVM, request=PacketType.REQUEST)
+        return dataclasses.replace(pb, codes=codes, svm_acc=acc, rslt=rslt)
+    # Classify-boundary VID validation: out-of-range packets are processed
+    # against slot 0's tables and their result is forced to -1.
+    vid_ok, vid = ref.zoo_slot(pb.vid, packed.n_versions)
+    # Both pipelines in three launches or L + 2 (every stage bound to the
+    # same image), or the twins; zero bias into the stages — svm_bias is
+    # added in the epilogue, outside, so partial sums compose.
     codes, tree_label, partial = ops.classify_fused_v(
         pb.codes, pb.features, vid, packed.dt_cv, packed.dt_cm,
         packed.dt_fid, packed.dt_flo, packed.dt_fhi, packed.dt_bit,
@@ -532,27 +543,9 @@ def _classify_impl(packed: PackedProgram, pb: PacketBatch, *, n_classes: int,
         packed.pred_labels, packed.pred_valid, packed.vote_weights,
         packed.svm_lut, torch.zeros_like(packed.svm_bias), n_classes,
         mode=mode, prep=img.fused)
-    vid_l = vid.to(torch.int64)
-    tree_result = torch.where(packed.pred_enable[vid_l], tree_label, -1)
-
-    # ---- svm predict: native adds on the kernel's LUT partials ----
-    acc = pb.svm_acc + partial
-    sums = acc + packed.svm_bias[vid_l]
-    signs = ((sums >= 0) & packed.svm_hvalid[vid_l]).to(torch.int64)
-    weights = 1 << torch.arange(signs.shape[1], device=signs.device)
-    sign_code = (signs * weights).sum(dim=1)
-    svm_label = packed.svm_pred_table[vid_l, sign_code]
-    svm_result = torch.where(packed.svm_pred_enable[vid_l], svm_label, -1)
-
-    # ---- result select + forwarding passthrough ----
-    # Non-REQUEST packets come out bit-identical: their codes / svm_acc
-    # intermediates and rslt are never overwritten (paper §6.1).
-    is_req = pb.ptype == PacketType.REQUEST
-    codes = torch.where(is_req[:, None], codes, pb.codes)
-    acc = torch.where(is_req[:, None], acc, pb.svm_acc)
-    result = torch.where(pb.mid == MID_SVM, svm_result, tree_result)
-    result = torch.where(vid_ok, result, -1)
-    rslt = torch.where(is_req & (result >= 0), result, pb.rslt)
+    codes, acc, rslt = ref.classify_epilogue(
+        pb.codes, pb.svm_acc, pb.rslt, pb.ptype, pb.mid, vid_ok, vid, codes,
+        tree_label, partial, *select, MID_SVM, PacketType.REQUEST)
     return dataclasses.replace(pb, codes=codes, svm_acc=acc, rslt=rslt)
 
 

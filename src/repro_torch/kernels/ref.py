@@ -3,7 +3,10 @@
 Port of ``src/repro/kernels/ref.py`` (``tcam_match_v``, ``tree_walk_v``,
 ``svm_lookup_v``, ``forest_predict_vote_v``, ``classify_fused_v``, the
 single-version ``tcam_match``, ``svm_lookup``, ``forest_predict_vote``, and
-``decode_attn``).
+``decode_attn``), and ``classify_epilogue``: the plane's SVM predict and
+result select after ``classify_fused_v`` (the glue of the JAX package's
+``_classify_impl``, ``src/repro/core/plane.py``), with ``zoo_slot``, its
+vid clamp.
 Each function is the semantic ground truth the CUDA kernels are held to bit
 for bit, and the engine's CPU execution path.  They run on any device.
 
@@ -36,7 +39,8 @@ import torch
 
 __all__ = ["tcam_match", "svm_lookup", "forest_predict_vote",
            "tcam_match_v", "tree_walk_v", "svm_lookup_v",
-           "forest_predict_vote_v", "classify_fused_v", "decode_attn"]
+           "forest_predict_vote_v", "classify_fused_v", "zoo_slot",
+           "classify_epilogue", "decode_attn"]
 
 _U32 = 0xFFFFFFFF
 
@@ -62,8 +66,8 @@ def _shift_bit(bit: torch.Tensor, shift) -> torch.Tensor:
 
 def _in_zoo(vid: torch.Tensor, V: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(vid in [0, V), vid with the others sent to slot 0 as int64)."""
-    ok = (vid >= 0) & (vid < V)
-    return ok, torch.where(ok, vid, 0).to(torch.int64)
+    ok, slot = zoo_slot(vid, V)
+    return ok, slot.to(torch.int64)
 
 
 def _tcam_match(codes, features, v, code_value, code_mask, fid, f_lo, f_hi,
@@ -198,6 +202,58 @@ def classify_fused_v(codes, features, vid, code_value, code_mask, fid, f_lo,
         walked, vid, pred_codes, pred_labels, pred_valid, weights, n_classes)
     sums = svm_lookup_v(features, vid, lut, bias)
     return walked, label, sums
+
+
+def zoo_slot(vid, V: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plane's vid clamp: (vid in [0, V), vid with the others sent to
+    slot 0, in vid's dtype).  A packet outside the zoo is classified
+    against slot 0 and its result forced to -1 (``classify_epilogue``)."""
+    ok = (vid >= 0) & (vid < V)
+    return ok, torch.where(ok, vid, 0)
+
+
+def classify_epilogue(codes_in, svm_acc_in, rslt_in, ptype, mid, vid_ok, vid,
+                      codes, tree_label, partial, pred_enable, svm_bias,
+                      svm_hvalid, svm_pred_table, svm_pred_enable, mid_svm,
+                      request):
+    """The plane's classify step after ``classify_fused_v``: the SVM
+    predict on the partial sums and the result select, with the passthrough
+    of every packet that is not ``request``.
+
+    ``codes_in``, ``svm_acc_in``, ``rslt_in``, ``ptype``, ``mid`` are the
+    packets' fields as they came; ``vid_ok`` and ``vid`` the clamp of
+    ``zoo_slot``; ``codes``, ``tree_label`` and ``partial`` the classify's
+    outputs on the clamped vids (sums without ``svm_bias``, so partial sums
+    compose across devices); the tables are the plane's source tables.
+    Returns (codes, svm_acc, rslt).  Each run is counted in
+    ``classify_epilogue.launches``, as the kernel wrappers count theirs.
+    """
+    classify_epilogue.launches += 1
+    vid_l = vid.to(torch.int64)
+    tree_result = torch.where(pred_enable[vid_l], tree_label, -1)
+
+    # ---- svm predict: native adds on the kernel's LUT partials ----
+    acc = svm_acc_in + partial
+    sums = acc + svm_bias[vid_l]
+    signs = ((sums >= 0) & svm_hvalid[vid_l]).to(torch.int64)
+    weights = 1 << torch.arange(signs.shape[1], device=signs.device)
+    sign_code = (signs * weights).sum(dim=1)
+    svm_label = svm_pred_table[vid_l, sign_code]
+    svm_result = torch.where(svm_pred_enable[vid_l], svm_label, -1)
+
+    # ---- result select + forwarding passthrough ----
+    # Non-REQUEST packets come out bit-identical: their codes / svm_acc
+    # intermediates and rslt are never overwritten (paper §6.1).
+    is_req = ptype == request
+    codes = torch.where(is_req[:, None], codes, codes_in)
+    acc = torch.where(is_req[:, None], acc, svm_acc_in)
+    result = torch.where(mid == mid_svm, svm_result, tree_result)
+    result = torch.where(vid_ok, result, -1)
+    rslt = torch.where(is_req & (result >= 0), result, rslt_in)
+    return codes, acc, rslt
+
+
+classify_epilogue.launches = 0
 
 
 def decode_attn(q, k, v, kv_len, *, mxu_native=False):

@@ -84,16 +84,20 @@ def _collector_paused():
 
 def _wrappers() -> dict:
     """Every kernel wrapper of the port, by name (each counts its launches
-    in ``.launches``)."""
+    in ``.launches``), and the classify's plain torch epilogue, which counts
+    its runs there too (``ref.classify_epilogue``: none in mode ``cuda``,
+    where the kernel does its work)."""
     from repro_torch.kernels.classify_fused import classify_fused
     from repro_torch.kernels.decode_attn import decode_attn
     from repro_torch.kernels.forest_vote import forest_vote
+    from repro_torch.kernels.ref import classify_epilogue
     from repro_torch.kernels.svm_lookup import svm_lookup
     from repro_torch.kernels.tcam_match import tcam_match
     from repro_torch.kernels.tree_walk import tree_walk
 
     return {f.__name__: f for f in (classify_fused, tree_walk, tcam_match,
-                                    forest_vote, svm_lookup, decode_attn)}
+                                    forest_vote, svm_lookup, decode_attn,
+                                    classify_epilogue)}
 
 
 def _counted() -> dict[str, int]:

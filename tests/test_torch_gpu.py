@@ -41,7 +41,14 @@ on a replaying slot thread that reaches the submitter as itself.  The
 pipelined and sharded lanes (``ShardedExecutor`` on one card, a stream a
 lane, one graph per bucket): three layouts in two modes replayed against
 eager and the twin with exact launches, a swap in place, a failing capture,
-and lanes on distinct cards where the host has more than one.
+and lanes on distinct cards where the host has more than one.  The
+classify step's hop entry (``classify_hop``: the kernel with the SVM
+predict and result select folded in) on the epilogue's cases of
+``tests/torch_epilogue_lane.py``, on the ``acorn-zoo4`` zoo and on each of
+``acorn-zoo4-fattree4``'s five hops: codes, svm_acc and rslt equal mode
+ref on the card and the frozen glue on the CPU, one ``classify_fused``
+launch and no glue run a hop, and a captured replay of the five hops adds
+5 launches and 0 glue runs.
 """
 import dataclasses
 
@@ -49,11 +56,18 @@ import numpy as np
 import pytest
 import torch
 
+import torch_epilogue_lane as lane
 from repro_torch.core import distributed_plane as tdp
 from repro_torch.core import mlmodels as tml
 from repro_torch.core import planner as tpl
 from repro_torch.core.packets import PacketBatch, PacketType
-from repro_torch.core.plane import PlaneProfile, SwitchEngine, program_tensors
+from repro_torch.core.plane import (
+    PlaneProfile,
+    SwitchEngine,
+    _classify_impl,
+    program_tensors,
+    resident_program,
+)
 from repro_torch.core.topology import fat_tree
 from repro_torch.core.translator import translate
 from repro_torch.data import conformance as draws
@@ -62,6 +76,7 @@ from repro_torch.data.conformance import N_CASES
 from repro_torch.kernels import ref, tiling
 from repro_torch.configs import smoke_config
 from repro_torch.kernels.classify_fused import classify_fused
+from repro_torch.kernels.ref import classify_epilogue
 from repro_torch.kernels.decode_attn import (
     decode_attn,
     decode_attn_plain,
@@ -723,6 +738,78 @@ def test_classify_fused_on_the_conformance_draws(cuda, V):
         want = twin.classify(packed, pb)
         for f in ("rslt", "codes", "svm_acc"):
             assert torch.equal(getattr(out, f), getattr(want, f)), (case, f)
+
+
+# ------------------------------------ the classify step's hop entry
+def _hop(call):
+    """Run ``call``; return (its result, ``classify_fused`` launches, runs
+    of the plain torch epilogue)."""
+    before = classify_fused.launches, classify_epilogue.launches
+    out = call()
+    torch.cuda.synchronize()
+    return (out, classify_fused.launches - before[0],
+            classify_epilogue.launches - before[1])
+
+
+@pytest.mark.parametrize("name", list(lane.EPI_CASES))
+def test_classify_hop_on_the_epilogue_cases(cuda, name):
+    """The hop entry on the card, on vids -1, V and in range, every packet
+    type, both MIDs, a disabled tree or SVM predict, a masked hyperplane and
+    sums at the int32 wrap: codes, svm_acc and rslt bit for bit mode ref
+    on the card and the frozen glue on the CPU; one launch, no glue run."""
+    packed, pb = lane.epilogue_case(name, cuda)
+    C = lane.EPI_SHAPE["C"]
+    got, n, glue = _hop(lambda: _classify_impl(packed, pb, n_classes=C,
+                                               mode="cuda"))
+    assert (n, glue) == (1, 0)
+    want = _classify_impl(packed, pb, n_classes=C, mode="ref")
+    cpu_packed, cpu_pb = lane.epilogue_case(name)
+    frozen = lane.frozen_classify(cpu_packed, cpu_pb, n_classes=C,
+                                  mode="ref")
+    for f in lane.FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+        assert torch.equal(getattr(got, f).cpu(), getattr(frozen, f)), f
+
+
+@pytest.mark.parametrize("config", ["acorn-zoo4", "acorn-zoo4-fattree4"])
+def test_classify_hop_on_the_benchmark_zoos(cuda, config):
+    """The ``acorn-zoo4`` zoo, and each of ``acorn-zoo4-fattree4``'s five
+    hops on the batch the hop before handed on, with packets on every edge
+    of the epilogue: the hop entry equals mode ref on the card and the
+    frozen glue on the CPU bit for bit, one launch and no glue run a hop."""
+    ex, pb, prof = lane.deployment(config, cuda)
+    programs = ex.programs if hasattr(ex, "programs") else (ex.packed,)
+    assert len(programs) == (5 if config.endswith("fattree4") else 1)
+    C, cpu_pb = prof.max_classes, pb.to("cpu")
+    for packed in programs:
+        got, n, glue = _hop(lambda: _classify_impl(packed, pb, n_classes=C,
+                                                   mode="cuda"))
+        assert (n, glue) == (1, 0)
+        want = _classify_impl(packed, pb, n_classes=C, mode="ref")
+        frozen = lane.frozen_classify(resident_program(packed, "cpu"),
+                                      cpu_pb, n_classes=C, mode="ref")
+        for f in lane.FIELDS:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+            assert torch.equal(getattr(got, f).cpu(), getattr(frozen, f)), f
+        pb, cpu_pb = got, frozen
+    assert (pb.rslt.cpu() >= 0).any()
+
+
+def test_path_replay_is_one_launch_a_hop_and_no_glue(cuda):
+    """``acorn-zoo4-fattree4``'s five hops in one captured graph
+    (``SequentialPathExecutor``, fused): a replay adds 5 ``classify_fused``
+    launches and 0 glue runs, and answers as the hops in mode ref."""
+    ex, pb, prof = lane.deployment("acorn-zoo4-fattree4", cuda)
+    rt = DataplaneRuntime(ex)
+    rt.run(pb)                                   # warm-up and capture
+    out, n, glue = _hop(lambda: rt.run(pb))
+    assert (n, glue) == (5, 0)
+    want = pb
+    for packed in ex.programs:
+        want = _classify_impl(packed, want, n_classes=prof.max_classes,
+                              mode="ref")
+    for f in lane.FIELDS:
+        assert torch.equal(getattr(out, f), getattr(want, f)), f
 
 
 # ------------------------------------------------- the graph cache (slice 7)

@@ -36,8 +36,12 @@ the hit at the last valid entry, shifts 31 and 32.  ``forest_vote`` and
 position in unsigned order) and vote with ``acorn::vote_warp`` (a lane a
 class, the trees' weights passed by shuffle, a butterfly argmax:
 ``lane_vote_model``, held bit for bit to the twins with T and C past 32
-and exact ties).  All of these are integer results or f32 sums in the
-twins' order, so every comparison is exact.
+and exact ties).  ``classify_fused``'s hop entry does the plane's
+epilogue in those warps: ``hop_epilogue_model`` is its sign-code ballot
+over the SVM warp's hyperplane lanes and its select in the vote warp, held
+bit for bit to ``ref.classify_epilogue`` for H 1-16.  All of these are
+integer results or f32 sums in the twins' order, so every comparison is
+exact.
 
 The geometry functions (``decode_attn.plan``,
 ``classify_fused.packets_per_block``, ``tcam_match.geometry``,
@@ -46,7 +50,8 @@ The geometry functions (``decode_attn.plan``,
 holds at least two blocks (or waves) on each of 132 SMs, the last round of
 blocks fills at least half the SMs, no span starts past the cache, shared
 memory stays within what a block may take (227 KB, 48 KB for the classify
-kernels' static limit; tcam_match and svm_lookup take none), every lane
+kernels' static limit, the hop entry's three ints a packet counted;
+tcam_match and svm_lookup take none), every lane
 group of tree_walk and forest_vote has a pair where the batch allows it,
 and an H above the SVM kernel's maximum is refused.  ``decode_attn``'s
 arrival counters are kept per (device, stream).
@@ -58,7 +63,8 @@ import torch
 import jax.numpy as jnp
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.core.packets import u32_bits, u32_from_bits
+from repro_torch.core.packets import PacketType, u32_bits, u32_from_bits
+from repro_torch.core.translator import MID_DT, MID_RF, MID_SVM
 from repro_torch.kernels import decode_attn as attn_module
 from repro_torch.kernels import forest_vote as vote_module
 from repro_torch.kernels import ref as tref
@@ -223,15 +229,21 @@ def test_plan_spans_cover_the_cache_and_fit(D, G, S, dtype):
 
 @pytest.mark.parametrize("B,T,F,L", [(4096, 8, 60, 32), (4097, 8, 60, 32),
                                      (1, 8, 60, 32), (37, 3, 10, 6),
-                                     (100_000, 8, 60, 32)])
+                                     (100_000, 8, 60, 32),
+                                     (100_000, 1, 732, 32)])
 def test_classify_packets_per_block(B, T, F, L):
-    """The classify kernel's blocks: feature rows, labels, vid and row
-    lengths within 48 KB, no more packets than give each warp its (packet,
-    tree) walks, and at the zoo's B 4096 a grid of at least two blocks on
-    each of 132 SMs."""
+    """The classify kernel's blocks: feature rows, labels, row lengths and
+    a packet's slot, hop flags and SVM result within 48 KB, no more
+    packets than give each warp its (packet, tree) walks, and at the zoo's
+    B 4096 a grid of at least two blocks on each of 132 SMs.  At T 1, F
+    732, L 32 the three ints a packet bind: 15 packets a block, where one
+    int a packet would have fit 16."""
     pb = packets_per_block(T, F, B, L=L)
     assert 1 <= pb <= packets_per_block(T, F, L=L)
-    assert (pb * (F + T + 1 + L * T) + L) * 4 <= 48 * 1024
+    assert cf_module.smem_ints(T, F, L) == F + T + 3 + L * T
+    assert (pb * (F + T + 3 + L * T) + L) * 4 <= 48 * 1024
+    if (T, F) == (1, 732):
+        assert pb == 15 and (16 * (F + T + 1 + L * T) + L) * 4 <= 48 * 1024
     assert (pb - 1) * T < cf_module.WALK_WARPS * cf_module.WALKS_PER_WARP
     if B >= 4096:
         assert -(-B // pb) >= 2 * SMS
@@ -537,6 +549,100 @@ def test_split_svm_model_wraps_like_the_twin(lanes):
                                        rng), twin)
     assert torch.equal(svm_module.svm_lookup(tf, tv, ops_), twin)
     assert not twin[torch.from_numpy(wide_vid) > V].any()
+
+
+# ---------------------------------- classify_fused's hop entry: the epilogue
+U32 = 0xFFFFFFFF
+
+
+def hop_epilogue_model(codes_in, svm_acc_in, rslt_in, ptype, mid, vid, V,
+                       walked, label, sums, pred_enable, svm_bias,
+                       svm_hvalid, svm_pred_table, svm_pred_enable, mid_svm,
+                       request):
+    """The hop entry's epilogue as its warps compute it, packet by packet:
+    in the SVM warp, lane h of slice 0 (lane = slice * hp + h, hp the power
+    of two at or above H) hands on acc + sums mod 2^32 and tests its sign
+    with the source bias; one ballot over the warp's 32 lanes is the sign
+    code (lane h is bit h), and lane 0 looks up the SVM result.  In the
+    vote warp, lane 0 then selects the result and writes rslt; the walk
+    writes each code or passes it through.  ``walked``, ``label`` and
+    ``sums`` are the kernel's on the clamped slot (a vid outside [0, V) is
+    walked and summed against slot 0)."""
+    B, H = svm_acc_in.shape
+    hp = 1
+    while hp < H:
+        hp *= 2
+    out_codes, out_acc = codes_in.clone(), svm_acc_in.clone()
+    out_rslt = rslt_in.clone()
+    for b in range(B):
+        ok = 0 <= int(vid[b]) < V
+        v = int(vid[b]) if ok else 0
+        req = int(ptype[b]) == request
+        ballot = 0
+        for lane in range(32):
+            h, sl = lane % hp, lane // hp
+            if sl != 0 or h >= H:
+                continue
+            acc_in = int(svm_acc_in[b, h]) & U32
+            handed = (acc_in + (int(sums[b, h]) & U32)) & U32
+            total = (handed + (int(svm_bias[v, h]) & U32)) & U32
+            sign = total < 2**31 and bool(svm_hvalid[v, h])
+            ballot |= int(sign) << lane
+            if req:
+                out_acc[b, h] = handed - 2**32 if handed >= 2**31 else handed
+        svm = int(svm_pred_table[v, ballot]) if svm_pred_enable[v] else -1
+        tree = int(label[b]) if pred_enable[v] else -1
+        result = (-1 if not ok else svm if int(mid[b]) == mid_svm
+                  else tree)
+        if req:
+            out_codes[b] = walked[b]
+            if result >= 0:
+                out_rslt[b] = result
+    return out_codes, out_acc, out_rslt
+
+
+@pytest.mark.parametrize("H", range(1, cf_module.MAX_HOP_H + 1))
+def test_hop_epilogue_model_matches_the_twin(H):
+    """H 1-16 (one round of hp = 1-16 hyperplane lanes, the rest of the
+    warp out of the ballot): the lane model of the sign-code ballot and of
+    the vote warp's select equals ``ref.classify_epilogue`` bit for bit, on
+    vids outside the zoo, every packet type, both pipelines, disabled
+    predicts, masked hyperplanes, sums past 2^31 and sums at 0 and -1."""
+    rng = np.random.default_rng(H)
+    B, V, T, C = 48, 3, 2, 5
+
+    def i32(a):
+        return torch.from_numpy(np.asarray(a).astype(np.int32))
+    full = (-2**31, 2**31 - 1)
+    vid = i32(rng.integers(-1, V + 1, B))
+    ptype = i32(rng.choice([PacketType.FORWARD, PacketType.REQUEST,
+                            PacketType.RESPONSE], B, p=[0.2, 0.6, 0.2]))
+    mid = i32(rng.choice([MID_DT, MID_RF, MID_SVM], B))
+    codes_in = i32(rng.integers(*full, (B, T)))
+    acc_in = i32(rng.integers(*full, (B, H)))
+    rslt_in = i32(rng.integers(-1, C, B))
+    walked = i32(rng.integers(*full, (B, T)))
+    label = i32(rng.integers(0, C, B))
+    sums = i32(rng.integers(*full, (B, H)))
+    tables = (torch.from_numpy(rng.random(V) < 0.7),
+              i32(rng.integers(*full, (V, H))),
+              torch.from_numpy(rng.random((V, H)) < 0.8),
+              i32(rng.integers(0, C, (V, 2**H))),
+              torch.from_numpy(rng.random(V) < 0.7))
+    ok, slot = tref.zoo_slot(vid, V)
+    # a few sums at exactly 0 and -1 with the bias: the sign test's edge
+    edge = torch.arange(0, B, 5)
+    total = (acc_in[edge].long() + tables[1][slot[edge].long()].long())
+    sums[edge] = tref._wrap32(-total - (edge % 2)[:, None])
+    want = tref.classify_epilogue(codes_in, acc_in, rslt_in, ptype, mid, ok,
+                                  slot, walked, label, sums, *tables,
+                                  MID_SVM, PacketType.REQUEST)
+    got = hop_epilogue_model(codes_in, acc_in, rslt_in, ptype, mid, vid, V,
+                             walked, label, sums, *tables, MID_SVM,
+                             PacketType.REQUEST)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (want[2] != rslt_in).any() and (~ok).any()
 
 
 # ------------------------------------------------- the staged geometries

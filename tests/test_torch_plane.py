@@ -8,7 +8,11 @@ then equal the JAX ``SwitchEngine(mode="ref")`` on ``rslt``, ``codes`` and
 ``svm_acc`` exactly.  Further pins: the port's own translator and install
 give the same tables, incremental install equals a full rebuild, an old
 program stays valid, evicted slots answer -1, passthrough is untouched, and
-one classify is one kernel call.
+one classify is one kernel call.  The classify step's epilogue (SVM
+predict and result select), in the kernel's hop entry and in
+``ref.classify_epilogue``, equals the glue it replaced, frozen in
+``tests/torch_epilogue_lane.py``, on that lane's cases in every mode and
+on the five hops of ``acorn-zoo4-fattree4``.
 """
 import dataclasses
 
@@ -17,6 +21,7 @@ import pytest
 import torch
 
 import test_conformance as conf
+import torch_epilogue_lane as lane
 from repro.core.plane import SwitchEngine as JaxEngine
 from repro_torch.core import mlmodels as tml
 from repro_torch.core import plane as tp
@@ -28,6 +33,7 @@ from repro_torch.core.packets import (
 )
 from repro_torch.kernels import classify_fused as cf_module
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as ref_module
 
 FIELDS = ("rslt", "codes", "svm_acc")
 
@@ -222,23 +228,86 @@ def test_passthrough_packets_untouched(zoo, plane_profile, mode):
 
 
 def test_one_kernel_call_per_classify(zoo, plane_profile, monkeypatch):
-    """Classify reaches the kernel wrapper exactly once, with the exec
-    image bound (no per-call operand prep)."""
+    """Classify reaches the kernel wrapper exactly once (its hop entry,
+    which takes the select and SVM predict too), with the exec image bound
+    (no per-call operand prep) and the plane's tables read in place."""
     Xte, dt, _rf, _svm = zoo
     prof = port_profile(plane_profile)
     eng = tp.SwitchEngine(prof, device="cpu", mode="cuda")
     prog = ttr.translate(dt)
     packed = eng.install(eng.empty(), prog)
     calls = []
-    real = ops.classify_fused
+    real = tp.classify_hop
 
-    def counting(*args):
-        calls.append(args[4])
-        return real(*args)
-    monkeypatch.setattr(ops, "classify_fused", counting)
+    def counting(*args, **kw):
+        calls.append(args)
+        return real(*args, **kw)
+    monkeypatch.setattr(tp, "classify_hop", counting)
     monkeypatch.setattr(ops.tiling, "prep_classify_fused", None)
     for B in (1, 7, 33):
         eng.classify(packed, _req(Xte[:B], prog, prof))
     assert len(calls) == 3
-    assert all(c is packed.image.fused for c in calls)
+    assert all(c[8] is packed.image.fused for c in calls)
+    assert all(c[9] is packed.pred_enable and c[13] is packed.svm_pred_enable
+               for c in calls)
     assert cf_module.classify_fused.launches == 0    # no card: no launch
+
+
+# ---------------------------------------------- the classify step's epilogue
+@pytest.mark.parametrize("mode", ["cuda", None, "unfused", "layerwise"],
+                         ids=str)
+@pytest.mark.parametrize("name", list(lane.EPI_CASES))
+def test_classify_step_equals_the_frozen_epilogue(name, mode):
+    """``_classify_impl`` on the CPU, through the hop entry's plain version
+    (mode ``cuda``) and through the twins and the staged modes with
+    ``ref.classify_epilogue``: bit for bit the frozen glue, on vids
+    outside the zoo, every packet type, both pipelines, a disabled tree
+    predict or SVM predict, a masked hyperplane and sums that wrap."""
+    packed, pb = lane.epilogue_case(name)
+    C = lane.EPI_SHAPE["C"]
+    want = lane.frozen_classify(packed, pb, n_classes=C, mode=mode)
+    twin = lane.frozen_classify(packed, pb, n_classes=C, mode="ref")
+    m = ops.resolve_mode(mode, pb.device)
+    before = ref_module.classify_epilogue.launches
+    got = tp._classify_impl(packed, pb, n_classes=C, mode=m)
+    assert ref_module.classify_epilogue.launches == before + 1
+    for f in FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+        assert torch.equal(getattr(got, f), getattr(twin, f)), f
+    req = pb.ptype == PacketType.REQUEST
+    for f in FIELDS:               # what passes through stays as it came
+        assert torch.equal(getattr(got, f)[~req], getattr(pb, f)[~req]), f
+    assert (req & (got.rslt != pb.rslt)).any()
+    bad = (pb.vid < 0) | (pb.vid >= lane.EPI_SHAPE["V"])
+    assert torch.equal(got.rslt[bad], pb.rslt[bad])
+
+
+@pytest.fixture(scope="module")
+def fattree_hops():
+    """The five hop programs of ``acorn-zoo4-fattree4`` on the CPU, and a
+    batch of the zoo's packets on every edge of the epilogue."""
+    ex, pb, prof = lane.deployment("acorn-zoo4-fattree4", "cpu")
+    return ex.programs, pb, prof
+
+
+def test_fattree4_hops_equal_the_frozen_epilogue(fattree_hops):
+    """The five hops of ``acorn-zoo4-fattree4`` through
+    ``SequentialPathExecutor(graphs=False)`` in mode ``cuda`` (the hop
+    entry's plain version, once a hop): the frozen glue's chain, bit for
+    bit."""
+    from repro_torch.runtime import SequentialPathExecutor
+
+    programs, pb, prof = fattree_hops
+    assert len(programs) == 5
+    ex = SequentialPathExecutor(list(programs), n_classes=prof.max_classes,
+                                mode="cuda", graphs=False)
+    before = ref_module.classify_epilogue.launches
+    got = ex.classify(pb)
+    assert ref_module.classify_epilogue.launches == before + 5
+    want = pb
+    for packed in programs:
+        want = lane.frozen_classify(packed, want,
+                                    n_classes=prof.max_classes, mode="cuda")
+    for f in FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert (got.rslt != pb.rslt).any()

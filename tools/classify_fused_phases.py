@@ -49,9 +49,8 @@ EDITS = [
      "  __syncthreads();\n" + _stamp(1) + "\n  // ---- svm sums, beside"),
     ("  __syncthreads();\n\n  // ---- vote",
      "  __syncthreads();\n" + _stamp(2) + "\n  // ---- vote"),
-    ("    if (lane == 0) out_label[b0 + p] = in ? best_c : 0;\n  }\n",
-     "    if (lane == 0) out_label[b0 + p] = in ? best_c : 0;\n  }\n"
-     "  __syncthreads();\n" + _stamp(3)),
+    ("hop.rslt[b];\n      }\n    }\n  }\n",
+     "hop.rslt[b];\n      }\n    }\n  }\n  __syncthreads();\n" + _stamp(3)),
 ]
 
 
