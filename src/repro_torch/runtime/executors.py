@@ -12,6 +12,9 @@ executors, all bit-identical on the same zoo and traffic:
   data-parallel across port lanes;
 * ``PipelinedExecutor``      — a ``ShardedExecutor`` with one port lane.
 
+The single switch, the path and the fleet (``serving/fleet.py``) are each
+a ``HopChain``: one chain of ``_classify_impl`` over resident programs.
+
 Where the reference jits its classify and keeps an executable per batch
 shape, these executors classify through a ``GraphCache``
 (``runtime/graphs.py``): a captured CUDA graph per (bucket, mode[, hops])
@@ -20,9 +23,10 @@ its programs **resident** (``core/plane.py``, ``resident_program``):
 ``install``, ``evict`` and ``swap`` write them in place, so the graphs stay
 valid across reprogramming as the reference's executables do across
 ``swap``.  One lock per executor (``graphs.Serial``) orders every classify
-and every write.  ``graphs=False`` classifies eagerly instead (the
-reference's ``jit=False``): the timing phase's yardstick and the tests'
-direct path; its ``cache_size()`` is 0.
+and every write.  ``graphs=False``, which every executor takes and hands
+to its cache, classifies eagerly instead (the reference's ``jit=False``):
+the timing phase's yardstick and the tests' direct path; its
+``cache_size()`` is 0.
 """
 from __future__ import annotations
 
@@ -48,8 +52,8 @@ from repro_torch.kernels import ops
 from repro_torch.runtime import trace
 from repro_torch.runtime.graphs import GraphCache, Serial
 
-__all__ = ["Executor", "SingleSwitchExecutor", "SequentialPathExecutor",
-           "ShardedExecutor", "PipelinedExecutor"]
+__all__ = ["Executor", "HopChain", "SingleSwitchExecutor",
+           "SequentialPathExecutor", "ShardedExecutor", "PipelinedExecutor"]
 
 
 @runtime_checkable
@@ -77,14 +81,69 @@ class Executor(Protocol):
     def cache_size(self) -> int: ...
 
 
-class SingleSwitchExecutor:
-    """One programmable switch — wraps a ``SwitchEngine`` and the program it
-    serves, resident (a copy of ``packed`` of its own, or a fresh empty
-    program).  Also carries the control-plane write interface
-    (``install``/``evict``) so a serving front can treat the executor as the
-    owning plane."""
+class HopChain:
+    """Resident programs by hop position, classified as a chain in path
+    order under one lock (``Serial``) through one ``GraphCache``: codes and
+    SVM partial sums ride the batch between hops as they ride the wire.
+
+    Each hop is one ``_classify_impl`` in the resolved ``mode``
+    (``kernels/ops.py``): one launch by default, three in ``"unfused"``,
+    L + 2 in ``"layerwise"``; the whole chain is one captured graph per
+    bucket and key.  Each hop is a ``hop`` span (``runtime/trace.py``)
+    where it runs from Python: eagerly, or in a graph's warm-up and
+    capture, not in its replays.
+    """
 
     granularity = 1
+
+    def __init__(self, programs: list[PackedProgram], *, n_classes: int,
+                 mode: str | None, device, graphs: bool,
+                 tag: tuple = ()) -> None:
+        self.device = torch.device(device)
+        self.n_classes = n_classes
+        self.mode = ops.resolve_mode(mode, self.device)
+        self._hops = list(programs)
+        self._serial = Serial(self.device)
+        # through the instance: a test may stand a _chain of its own in
+        self._cache = GraphCache(lambda pb, *key: self._chain(pb, *key),
+                                 self.device, (self.mode, *tag),
+                                 graphs=graphs)
+
+    def _chain(self, batch: PacketBatch, n: int | None = None) -> PacketBatch:
+        """The first ``n`` hops (all of them by default) on ``batch``."""
+        for packed in self._hops[:n]:
+            with trace.span("hop"):
+                batch = _classify_impl(packed, batch,
+                                       n_classes=self.n_classes,
+                                       mode=self.mode)
+        return batch
+
+    def _key(self) -> tuple:
+        """The cache key's part read under the lock, passed on to
+        ``_chain``: none when every hop runs."""
+        return ()
+
+    def classify(self, batch: PacketBatch) -> PacketBatch:
+        with self._serial:
+            return self._cache.run(batch, *self._key())
+
+    def _write(self, programs: list[PackedProgram]) -> None:
+        """Copy ``programs`` into the first hops' resident programs, in
+        place (the caller holds the lock)."""
+        copy_program_(self._hops[:len(programs)], programs)
+
+    def cache_size(self) -> int:
+        """Captured classifies: one per admission bucket and key."""
+        return len(self._cache)
+
+
+class SingleSwitchExecutor(HopChain):
+    """One programmable switch: the chain with one hop, the program it
+    serves held resident (a copy of ``packed`` of its own, or a fresh empty
+    program), and the ``SwitchEngine`` that gives its profile, mode and
+    device.  Also carries the control-plane write interface
+    (``install``/``evict``) so a serving front can treat the executor as the
+    owning plane."""
 
     def __init__(self, profile: PlaneProfile | None = None, *,
                  engine: SwitchEngine | None = None,
@@ -96,28 +155,16 @@ class SingleSwitchExecutor:
                 raise ValueError("need a PlaneProfile or an existing engine")
             engine = SwitchEngine(profile, mode=mode, device=device)
         self.engine = engine
-        self.packed = (engine.empty() if packed is None
-                       else resident_program(packed))
-        self._serial = Serial(engine.device)
-        self._cache = GraphCache(
-            lambda pb: _classify_impl(self.packed, pb,
-                                      n_classes=engine.profile.max_classes,
-                                      mode=engine.mode),
-            engine.device, (engine.mode,)) if graphs else None
+        super().__init__([engine.empty() if packed is None
+                          else resident_program(packed)],
+                         n_classes=engine.profile.max_classes,
+                         mode=engine.mode, device=engine.device,
+                         graphs=graphs)
+        self.packed = self._hops[0]
 
     @property
     def profile(self) -> PlaneProfile:
         return self.engine.profile
-
-    @property
-    def device(self):
-        return self.engine.device
-
-    def classify(self, batch: PacketBatch) -> PacketBatch:
-        with self._serial:
-            if self._cache is None:
-                return self.engine.classify(self.packed, batch)
-            return self._cache.run(batch)
 
     def install(self, program: TableProgram, *, vid: int | None = None,
                 stages: set[int] | None = None) -> "SingleSwitchExecutor":
@@ -137,54 +184,32 @@ class SingleSwitchExecutor:
             device_programs = [device_programs]
         (packed,) = device_programs
         with self._serial:
-            copy_program_([self.packed], [packed])
-
-    def cache_size(self) -> int:
-        return 0 if self._cache is None else len(self._cache)
+            self._write([packed])
 
 
-class SequentialPathExecutor:
+class SequentialPathExecutor(HopChain):
     """Apply each hop's partial program in path order on one device.
 
-    The functional reference for every distributed decomposition: status
-    codes and SVM partial sums ride the batch between hops exactly as they
-    ride the wire.  Each hop is one ``_classify_impl`` in the executor's
-    ``mode`` (``kernels/ops.py``), so a hop costs what one switch's classify
-    costs: one launch by default, three in ``"unfused"``, L + 2 in
-    ``"layerwise"``; the whole chain is one captured graph per bucket.  The
-    device is the programs' own (``cuda`` unless they were built on the
-    CPU); the executor holds resident copies of them.  Each hop's classify
-    is a ``hop`` span (``runtime/trace.py``) where it runs from Python: the
-    eager path, and a graph's warm-up and capture, not its replays.
-    ``path_stats()`` says what each hop holds.
+    The functional reference for every distributed decomposition: the
+    chain over every hop, one captured graph per bucket.  The device is the
+    programs' own (``cuda`` unless they were built on the CPU); the
+    executor holds resident copies of them.  ``path_stats()`` says what
+    each hop holds.
     """
-
-    granularity = 1
 
     def __init__(self, device_programs: list[PackedProgram], *,
                  n_classes: int, mode: str | None = None,
                  graphs: bool = True) -> None:
         if not device_programs:
             raise ValueError("need at least one device program")
-        self.device = device_programs[0].device
-        if any(p.device != self.device for p in device_programs):
+        device = device_programs[0].device
+        if any(p.device != device for p in device_programs):
             raise ValueError("every hop's program must be on one device")
-        self.programs = tuple(resident_program(p) for p in device_programs)
-        self.n_classes = n_classes
-        self.mode = ops.resolve_mode(mode, self.device)
-        self._serial = Serial(self.device)
-        self._cache = GraphCache(self._chain, self.device,
-                                 (self.mode, len(self.programs))
-                                 ) if graphs else None
+        super().__init__([resident_program(p) for p in device_programs],
+                         n_classes=n_classes, mode=mode, device=device,
+                         graphs=graphs, tag=(len(device_programs),))
+        self.programs = tuple(self._hops)
         self._stats = _path_stats(device_programs)
-
-    def _chain(self, batch: PacketBatch) -> PacketBatch:
-        for packed in self.programs:
-            with trace.span("hop"):
-                batch = _classify_impl(packed, batch,
-                                       n_classes=self.n_classes,
-                                       mode=self.mode)
-        return batch
 
     def path_stats(self) -> dict:
         """What the path holds, worked out when its programs were given:
@@ -197,25 +222,16 @@ class SequentialPathExecutor:
         result, int32 each, at the profile's widths."""
         return self._stats
 
-    def classify(self, batch: PacketBatch) -> PacketBatch:
-        with self._serial:
-            if self._cache is None:
-                return self._chain(batch.to(self.device))
-            return self._cache.run(batch)
-
     def swap(self, device_programs: list[PackedProgram]) -> None:
         """Copy each hop's program into its resident one (same count,
         device and profile)."""
-        if len(device_programs) != len(self.programs):
+        if len(device_programs) != len(self._hops):
             raise ValueError("device count changed — replan instead")
         if any(p.device != self.device for p in device_programs):
             raise ValueError("every hop's program must be on one device")
         with self._serial:
-            copy_program_(self.programs, device_programs)
+            self._write(device_programs)
             self._stats = _path_stats(device_programs)
-
-    def cache_size(self) -> int:
-        return 0 if self._cache is None else len(self._cache)
 
 
 def _path_stats(device_programs) -> dict:
@@ -325,8 +341,10 @@ class ShardedExecutor:
                            for d in dict.fromkeys(row)}
                           for p, row in zip(device_programs, self.lanes)]
         self._serial = Serial(self.device)
-        self._graphs = graphs and len(set(devices)) == 1
-        self._caches: dict[int, GraphCache] = {}
+        self._cache = GraphCache(
+            self._pipeline, self.device,
+            (self.mode, self.n_switch, self.n_ports),
+            graphs=graphs and len(set(devices)) == 1)
         self._streams: dict[tuple[int, int], torch.cuda.Stream] = {}
 
     @property
@@ -384,21 +402,9 @@ class ShardedExecutor:
                 origin.wait_stream(stream)
         return batch
 
-    def _cache(self, n_micro: int) -> GraphCache:
-        cache = self._caches.get(n_micro)
-        if cache is None:
-            cache = self._caches[n_micro] = GraphCache(
-                lambda pb: self._pipeline(pb, n_micro), self.device,
-                (self.mode, self.n_switch, self.n_ports, n_micro))
-        return cache
-
     def _classify(self, batch: PacketBatch, n_micro: int) -> PacketBatch:
         with self._serial:
-            if self._graphs:
-                return self._cache(n_micro).run(batch)
-            return self._pipeline(batch.map(
-                lambda x: x.to(self.device, copy=True, non_blocking=True)),
-                n_micro)
+            return self._cache.run(batch, n_micro)
 
     def run(self, microbatches: PacketBatch) -> PacketBatch:
         """Pipeline pre-split microbatches ``[n_micro, B_mb, ...]``; returns
@@ -445,7 +451,7 @@ class ShardedExecutor:
 
     def cache_size(self) -> int:
         """Captured classifies: one per (admission bucket, ``n_micro``)."""
-        return sum(len(c) for c in self._caches.values())
+        return len(self._cache)
 
 
 class PipelinedExecutor(ShardedExecutor):

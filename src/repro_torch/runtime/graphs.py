@@ -30,6 +30,11 @@ gives way to eager.  On the CPU an entry runs the same classify eagerly on
 the same static buffers, so the staging, the static addresses and the
 bookkeeping run in the CPU tests; only the capture is the card's.
 
+The cache is also where an executor's choice between graph and eager is
+made: built with ``graphs=False`` (the reference's ``jit=False``) it runs
+the classify eagerly on a copy of each batch on its device and keeps no
+entry.
+
 Launch counts stay exact: the kernel wrappers count their launches only
 while the graph is captured, so an entry takes back the counts its capture
 made and adds them again on every replay.
@@ -149,16 +154,20 @@ class _Entry:
 class GraphCache:
     """One captured classify per key (see the module docstring).
 
-    ``body(batch) -> batch`` is the classify; ``tag`` joins every key (the
-    mode, and the hop count of a path).  The caller holds the executor's
-    lock (``Serial``) around ``run``.
+    ``body(batch, *key) -> batch`` is the classify; ``tag`` joins every key
+    (the mode, and the hop count of a path), and the ``key`` a ``run`` is
+    given joins its own (a fleet's hosting count, a lane layout's
+    ``n_micro``).  With ``graphs`` off every run is eager and no entry is
+    kept.  The caller holds the executor's lock (``Serial``) around
+    ``run``.
     """
 
-    def __init__(self, body: Callable[[PacketBatch], PacketBatch], device,
-                 tag: tuple = ()) -> None:
+    def __init__(self, body: Callable[..., PacketBatch], device,
+                 tag: tuple = (), *, graphs: bool = True) -> None:
         self._body = body
         self.device = torch.device(device)
         self.tag = tuple(tag)
+        self.graphs = graphs
         self._entries: dict[tuple, _Entry] = {}
         self._pool = None
 
@@ -166,19 +175,25 @@ class GraphCache:
         return len(self._entries)
 
     def keys(self) -> list[tuple]:
-        """(bucket, F, T, H, *tag) of every entry."""
+        """(bucket, F, T, H, *tag, *key) of every entry."""
         return list(self._entries)
 
-    def run(self, batch: PacketBatch) -> PacketBatch:
-        """Classify ``batch`` at its own size through its key's entry,
-        capturing the entry on first use.  Returns a fresh device batch in
-        the flat layout."""
+    def run(self, batch: PacketBatch, *key) -> PacketBatch:
+        """Classify ``batch`` at its own size through the entry of its
+        shape, the tag and ``key``, capturing the entry on first use;
+        ``key`` is passed on to the body.  Returns a fresh device batch, in
+        the flat layout unless graphs are off: then the body runs on a copy
+        of ``batch`` (a body may write its batch in place)."""
+        if not self.graphs:
+            return self._body(batch.map(lambda x: x.to(
+                self.device, copy=True, non_blocking=True)), *key)
         shape = (batch.batch, *widths(batch))
-        key = shape + self.tag
-        entry = self._entries.get(key)
+        at = shape + self.tag + key
+        entry = self._entries.get(at)
         fresh = entry is None
         if fresh:
-            entry = _Entry(self._body, *shape, self.device)
+            entry = _Entry(lambda pb: self._body(pb, *key), *shape,
+                           self.device)
         entry.stage(batch)
         if self.device.type != "cuda":
             entry.compute()
@@ -188,7 +203,7 @@ class GraphCache:
         else:
             entry.graph.replay()
             _add_launches(entry.launches)
-        self._entries[key] = entry
+        self._entries[at] = entry
         return flat_views(entry.buf.clone(), *shape)
 
     def _capture(self, entry: _Entry) -> None:

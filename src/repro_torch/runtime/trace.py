@@ -26,7 +26,7 @@ staging buffer), ``admit`` (admission's pad into the bucket, or
 ``classify``'s checkout of a staging buffer and its zero tail), ``executor``
 (the executor's classify: its lock, stage, replay and clone), ``lock`` (the
 wait for the executor's lock), ``capture`` (a graph captured), ``hop``
-(one hop's classify in ``SequentialPathExecutor``'s chain, where the chain
+(one hop's classify in an executor's chain, ``HopChain``, where the chain
 runs from Python: eagerly, or in a graph's warm-up and capture; a replay
 runs no span), ``copy_out`` (the result to the host, which waits for the
 card), ``cut`` (the async front's cut and coalesce), ``demux`` (its

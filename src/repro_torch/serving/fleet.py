@@ -12,13 +12,14 @@ hop's program to one jitted ``SwitchEngine.classify`` as an argument, so
 its cache holds at most two executables however many devices a plan uses.
 A captured CUDA graph reads fixed addresses instead, so the port's
 ``FleetExecutor`` keeps a **hop pool**: resident programs, one per hop
-position (``core/plane.py``, ``resident_program``), and one ``GraphCache``
-(``runtime/graphs.py``) per number of hosting hops, whose chain reads the
-first *n* programs of the pool.  A deployment is written into positions
-0..n-1 in place (``copy_program_``), under the executor's lock, so no
-captured graph ever reads a freed or stale tensor and no resident
-``data_ptr`` moves; the pool grows only when a deployment has more hosting
-switches than it holds.  ``cache_size()`` is therefore at most (admission
+position (``core/plane.py``, ``resident_program``), chained by
+``HopChain`` (``runtime/executors.py``) through one ``GraphCache``
+(``runtime/graphs.py``) keyed by the number *n* of hosting hops; an
+entry's chain reads the first *n* programs of the pool.  A deployment is
+written into positions 0..n-1 in place (``copy_program_``), under the
+executor's lock, so no captured graph ever reads a freed or stale tensor
+and no resident ``data_ptr`` moves; the pool grows only when a deployment
+has more hosting switches than it holds.  ``cache_size()`` is therefore at most (admission
 buckets used) x (distinct hosting counts seen), and a retarget to a
 hosting count already captured adds no entry.
 
@@ -45,13 +46,7 @@ import numpy as np
 from repro_torch.core.distributed_plane import build_zoo_device_programs
 from repro_torch.core.netsim import acorn_serving_time, simulate_serving
 from repro_torch.core.packets import PacketBatch
-from repro_torch.core.plane import (
-    PackedProgram,
-    PlaneProfile,
-    SwitchEngine,
-    _classify_impl,
-    copy_program_,
-)
+from repro_torch.core.plane import PackedProgram, PlaneProfile, SwitchEngine
 from repro_torch.core.planner import (
     DeploymentPlan,
     DeviceModel,
@@ -62,7 +57,7 @@ from repro_torch.core.topology import Network
 from repro_torch.core.translator import TableProgram
 from repro_torch.runtime import SizeOrDeadlinePolicy
 from repro_torch.runtime.control import ControlLoop, DeviceFailure
-from repro_torch.runtime.graphs import GraphCache, Serial
+from repro_torch.runtime.executors import HopChain
 from repro_torch.runtime.policies import BatchingPolicy
 from repro_torch.serving.async_server import AsyncResult, AsyncZooServer
 from repro_torch.serving.serve import ZooServer
@@ -70,41 +65,34 @@ from repro_torch.serving.serve import ZooServer
 __all__ = ["FleetExecutor", "FleetRuntime"]
 
 
-class FleetExecutor:
+class FleetExecutor(HopChain):
     """``Executor`` over a deployment plan's wire path, on a hop pool.
 
     Holds the template ``SwitchEngine`` (its profile, mode and device), the
     hop pool, and a live ``down`` set shared with the owning
-    ``FleetRuntime``.  ``classify`` runs the hosting hops in path order —
-    the chain of partial programs of ``SequentialPathExecutor`` — after
-    checking that every switch on the wire path (hosting or not) is alive,
-    and checks again once the answer is copied out; a dead one raises
-    ``DeviceFailure`` for the control loop.  ``graphs=False`` classifies
-    eagerly (``cache_size()`` 0).
+    ``FleetRuntime``.  ``classify`` runs the chain over the hosting hops in
+    path order, keyed by their count, after checking that every switch on
+    the wire path (hosting or not) is alive, and checks again once the
+    answer is copied out; a dead one raises ``DeviceFailure`` for the
+    control loop.  ``graphs=False`` classifies eagerly (``cache_size()``
+    0).
     """
-
-    granularity = 1
 
     def __init__(self, engine: SwitchEngine, wire_path: list[str],
                  devices: list[str], programs: list[PackedProgram], *,
                  down: set[str], graphs: bool = True) -> None:
         self.engine = engine
         self._down = down             # shared with FleetRuntime.kill()
-        self._graphs = graphs
-        self._serial = Serial(engine.device)
-        self._pool: list[PackedProgram] = []
-        self._caches: dict[int, GraphCache] = {}
+        super().__init__([], n_classes=engine.profile.max_classes,
+                         mode=engine.mode, device=engine.device,
+                         graphs=graphs)
         self.retarget(wire_path, devices, programs)
-
-    @property
-    def device(self):
-        return self.engine.device
 
     @property
     def pool(self) -> tuple[PackedProgram, ...]:
         """The resident hop programs, by hop position (positions at and
         past ``len(devices)`` are not read by the current deployment)."""
-        return tuple(self._pool)
+        return tuple(self._hops)
 
     def retarget(self, wire_path: list[str], devices: list[str],
                  programs: list[PackedProgram]) -> None:
@@ -126,29 +114,17 @@ class FleetExecutor:
     def _write(self, programs: list[PackedProgram]) -> None:
         """Copy ``programs`` into the pool's first positions, growing the
         pool by empty resident programs first.  The caller holds the lock."""
-        while len(self._pool) < len(programs):
-            self._pool.append(self.engine.empty())
-        copy_program_(self._pool[:len(programs)], programs)
+        while len(self._hops) < len(programs):
+            self._hops.append(self.engine.empty())
+        super()._write(programs)
 
     @property
     def programs(self) -> dict[str, PackedProgram]:
         """Each hosting device's resident program."""
-        return dict(zip(self.devices, self._pool))
+        return dict(zip(self.devices, self._hops))
 
-    def _chain(self, batch: PacketBatch, n: int) -> PacketBatch:
-        for packed in self._pool[:n]:
-            batch = _classify_impl(packed, batch,
-                                   n_classes=self.engine.profile.max_classes,
-                                   mode=self.engine.mode)
-        return batch
-
-    def _cache(self, n: int) -> GraphCache:
-        cache = self._caches.get(n)
-        if cache is None:
-            cache = self._caches[n] = GraphCache(
-                lambda pb: self._chain(pb, n), self.device,
-                (self.engine.mode, n))
-        return cache
+    def _key(self) -> tuple:
+        return (len(self.devices),)
 
     def _check(self) -> None:
         dead = [d for d in self.wire_path if d in self._down]
@@ -157,12 +133,7 @@ class FleetExecutor:
 
     def classify(self, batch: PacketBatch) -> PacketBatch:
         self._check()
-        with self._serial:
-            n = len(self.devices)
-            if self._graphs:
-                out = self._cache(n).run(batch)
-            else:
-                out = self._chain(batch.to(self.device), n)
+        out = super().classify(batch)
         # a kill that lands mid-chain: the answer is correct (the tables
         # were intact), but real hardware would have dropped the packet at
         # the dead hop — drop it so the retry path runs
@@ -177,10 +148,6 @@ class FleetExecutor:
             raise ValueError("device count changed — retarget (replan) instead")
         with self._serial:
             self._write(list(device_programs))
-
-    def cache_size(self) -> int:
-        """Captured classifies: one per (admission bucket, hosting count)."""
-        return sum(len(c) for c in self._caches.values())
 
 
 class FleetRuntime:

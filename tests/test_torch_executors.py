@@ -134,7 +134,7 @@ def test_one_cache_entry_per_n_micro(satdap):
         out = ex.run(pb.map(lambda x: x.reshape(
             (n_micro, X.shape[0] // n_micro) + tuple(x.shape[1:]))))
         np.testing.assert_array_equal(out.rslt.numpy(), want)
-    assert sorted(ex._caches) == [2, 4]
+    assert sorted(k[-1] for k in ex._cache.keys()) == [2, 4]
     assert ex.cache_size() == 2, \
         "revisiting an n_micro must reuse its entry, not add one"
     assert ex.granularity == 1 and ex.n_micro == 1

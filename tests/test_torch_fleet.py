@@ -244,20 +244,6 @@ def test_fleet_retargets_under_concurrent_classifies_never_tear(setup):
     assert wide.executor.cache_size() <= 2
 
 
-def test_fleet_eager_executor_equals_the_graph_path(setup):
-    """``graphs=False`` classifies eagerly, keeps no cache, and answers the
-    same."""
-    fleet = _fleet(setup)
-    progs = list(fleet.replan_sync()[2])
-    eager = FleetExecutor(fleet.engine, fleet.path, fleet.executor.devices,
-                          progs, down=set(), graphs=False)
-    pb = fleet.make_request(setup["Xq"], mid=0, vid=1)
-    a, b = eager.classify(pb), fleet.executor.classify(pb)
-    for f in ("rslt", "codes", "svm_acc"):
-        assert torch.equal(getattr(a, f), getattr(b, f))
-    assert eager.cache_size() == 0 and fleet.executor.cache_size() == 1
-
-
 def test_fleet_kill_raises_device_failure(setup):
     """A dead device anywhere on the wire path (hosting or not) fails the
     dispatch with DeviceFailure naming a dead hop."""

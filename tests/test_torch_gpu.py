@@ -1153,12 +1153,12 @@ def test_device_failure_from_a_replaying_slot_thread_reaches_the_submitter(
     ex = fleet.executor
     pb = d.phases[0]
     fleet.runtime.run(pb)                          # capture
-    cache = ex._cache(len(ex.devices))
+    cache = ex._cache
     replay = cache.run
     threads = []
 
-    def replay_then_kill(batch):
-        out = replay(batch)
+    def replay_then_kill(batch, *key):
+        out = replay(batch, *key)
         threads.append(threading.current_thread())
         for k in d.kills:
             fleet.kill(k)

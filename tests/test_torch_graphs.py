@@ -38,11 +38,13 @@ from repro_torch.core.translator import translate
 from repro_torch.runtime import (
     DataplaneRuntime,
     SequentialPathExecutor,
+    ShardedExecutor,
     SingleSwitchExecutor,
     bucket_ladder,
 )
 from repro_torch.runtime.staging import StagingPool
 from repro_torch.serving import ZooServer
+from repro_torch.serving.fleet import FleetExecutor
 from test_torch_plane import assert_batches_equal, port_packed, port_profile
 
 SIZES = (1, 7, 63, 64, 65)
@@ -293,20 +295,43 @@ def test_executor_holds_a_program_of_its_own(zoos, satdap):
     assert not torch.equal(ex.packed.pred_enable, given.pred_enable)
 
 
-def test_eager_executors_keep_no_cache(zoos):
-    """``graphs=False`` classifies eagerly, with the same answers and a
-    ``cache_size`` of 0 (the reference's ``jit=False``)."""
+def _runtime(kind, jzoo, graphs):
+    """The zoo's tables through executor ``kind``: the single switch
+    behind a ``ZooServer``, or a 2-hop path (the zoo, then a hop of no
+    entries) as the path executor in a mode, as the fleet, or as 2 x 2
+    lanes."""
+    zoo = _port_zoo(jzoo, graphs=graphs)
+    if kind == "single":
+        return zoo.runtime
+    hops = [zoo.packed, tp.empty_program(zoo.profile, "cpu")]
+    if kind == "fleet":
+        ex = FleetExecutor(zoo.engine, ["s0", "s1"], ["s0", "s1"], hops,
+                           down=set(), graphs=graphs)
+    elif kind == "lanes-2x2":
+        ex = ShardedExecutor(hops, n_classes=8, n_ports=2, n_micro=2,
+                             graphs=graphs)
+    else:
+        ex = SequentialPathExecutor(
+            hops, n_classes=8, mode=None if kind == "path" else "layerwise",
+            graphs=graphs)
+    return DataplaneRuntime(ex)
+
+
+@pytest.mark.parametrize("kind", ["single", "path", "path-layerwise",
+                                  "fleet", "lanes-2x2"])
+def test_eager_executors_equal_the_graph_path(zoos, kind):
+    """``graphs=False`` classifies eagerly, with the same answers as the
+    graph path on every size and a ``cache_size`` of 0 where the graph
+    path keeps one entry per bucket (the reference's ``jit=False``)."""
     jzoo, X = zoos
-    graph, eager = _port_zoo(jzoo), _port_zoo(jzoo, graphs=False)
+    graph, eager = _runtime(kind, jzoo, True), _runtime(kind, jzoo, False)
+    zoo = _port_zoo(jzoo)
     for B in SIZES:
-        _, pb = _batches(jzoo, graph, _traffic(X, B, B))
-        a, b = graph.runtime.run(pb), eager.runtime.run(pb)
+        _, pb = _batches(jzoo, zoo, _traffic(X, B, B))
+        a, b = graph.run(pb), eager.run(pb)
         for f in FIELDS:
-            assert torch.equal(getattr(a, f), getattr(b, f))
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
     assert graph.cache_size() == 4 and eager.cache_size() == 0
-    path = SequentialPathExecutor([graph.packed, graph.packed],
-                                  n_classes=8, graphs=False)
-    assert path.cache_size() == 0
 
 
 def test_sequential_path_through_the_cache(zoos):
@@ -504,24 +529,47 @@ def test_empty_request_is_answered_without_a_buffer(zoos):
     assert zoo.runtime.cache_size() == 0
 
 
-@pytest.mark.parametrize("graphs", [True, False])
-def test_run_n_is_not_overwritten_through_a_reused_buffer(zoos, graphs):
-    """Two classifies at one bucket through the staging pool: the first
-    answer is a copy of its own.  With the graph cache the executor copies
-    the buffer, so the second call reuses it; eagerly on the CPU the
-    answer holds views of it, so it leaves the pool with the answer."""
-    jzoo, X = zoos
-    zoo = _port_zoo(jzoo, graphs=graphs)
-    a = _request_args(60, True, 1)
-    b = _request_args(61, True, 2)
-    first = zoo.classify(**a, device_out=True)
+class _Echo(SingleSwitchExecutor):
+    """Answers with the batch it is handed: views of the staging buffer."""
+
+    def classify(self, batch):
+        return batch
+
+
+def _two_runs_at_one_bucket(zoo):
+    """Two classifies at bucket 64 through the staging pool; the first
+    answer must come out as it was after the second."""
+    first = zoo.classify(**_request_args(60, True, 1), device_out=True)
     kept = first.map(lambda x: x.clone())
-    second = zoo.classify(**b, device_out=True)
+    second = zoo.classify(**_request_args(61, True, 2), device_out=True)
     for f in FIELDS:
         assert torch.equal(getattr(first, f), getattr(kept, f)), f
     assert not torch.equal(first.features, second.features[:60])
-    assert zoo.runtime.staging_stats() == (
-        {"reused": 1, "made": 1} if graphs else {"reused": 0, "made": 2})
+
+
+@pytest.mark.parametrize("graphs", [True, False])
+def test_run_n_is_not_overwritten_through_a_reused_buffer(zoos, graphs):
+    """Two classifies at one bucket through the staging pool: the first
+    answer is a copy of its own.  The graph cache copies its static buffer
+    out, and its eager path runs on a copy of the batch, so either way the
+    second call reuses the buffer."""
+    jzoo, _ = zoos
+    zoo = _port_zoo(jzoo, graphs=graphs)
+    _two_runs_at_one_bucket(zoo)
+    assert zoo.runtime.staging_stats() == {"reused": 1, "made": 1}
+
+
+def test_an_answer_holding_the_buffer_takes_it_out_of_the_pool(zoos):
+    """On the host, an executor whose answer holds views of the staging
+    buffer keeps that buffer: it leaves the pool with the answer, and the
+    second call makes a new one."""
+    jzoo, _ = zoos
+    jprof = jzoo.profile
+    zoo = ZooServer(port_profile(jprof), executor=_Echo(
+        port_profile(jprof), device="cpu",
+        packed=port_packed(jzoo.packed, jprof)))
+    _two_runs_at_one_bucket(zoo)
+    assert zoo.runtime.staging_stats() == {"reused": 0, "made": 2}
 
 
 class _Pending:
