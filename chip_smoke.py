@@ -8,8 +8,8 @@ needs one CUDA card; without one, or without the port's sources beside it,
 it exits non-zero and prints no result.  It imports nothing of JAX or of the
 JAX package.  Phases, each fatal on failure:
 
-1. build   — ``nvcc`` compiles the six ``src/repro_torch/csrc/*.cu``
-             kernels for sm_90a, all at once; prints the seconds and the
+1. build   — ``nvcc`` compiles the seven ``src/repro_torch/csrc/*.cu``
+             sources for sm_90a, all at once; prints the seconds and the
              ``-Xptxas -v`` summary of each.
 2. kernel  — random full-width tables for four zoo slots (one empty) at
              B in {1, 300, 4096}: the fused kernel's codes, labels and SVM
@@ -57,7 +57,9 @@ JAX package.  Phases, each fatal on failure:
              batches through ``classify`` and ``classify_coalesced``; all
              bit-identical to ``SwitchEngine(mode="ref")``, DT/RF equal to
              ``predict``, SVM within the fixed-point slack, the empty slot
-             answers -1, passthrough untouched, one launch per classify.
+             answers -1, passthrough untouched, one launch per classify
+             and, where ``classify`` stages the request as a byte record,
+             one ``expand_request`` launch ahead of it.
 6. staged  — the same zoo and traffic through ``ZooServer(mode="unfused")``
              (3 launches per classify: walk, vote, SVM sums) and
              ``ZooServer(mode="layerwise")`` (L + 2: one ``tcam_match`` per
@@ -80,7 +82,9 @@ JAX package.  Phases, each fatal on failure:
              against its f32 ``forward`` and the bf16 decode against it;
              wrong attentions held to the same bounds must fail them.
 9. timing  — CUDA events over many launches at B = 4096: each classify
-             kernel, its plain version, one PyTorch library call where one
+             kernel and ``expand_request`` (phase 5's request as a record,
+             F 60, T 8, H 12; equal to its plain version bit for bit), its
+             plain version, one PyTorch library call where one
              computes the same function, and the bound from the bytes this
              run's data touches; requests/s end to end through
              ``ZooServer`` in the three modes and through the multi-switch
@@ -272,13 +276,16 @@ REPLACES = {                     # the TPU kernel each CUDA kernel replaces
     "forest_vote": "src/repro/kernels/forest_vote.py:69",
     "svm_lookup": "src/repro/kernels/svm_lookup.py:71",
     "decode_attn": "src/repro/kernels/decode_attn.py:82",
+    "expand_request": "none",    # the note atop csrc/request_record.cu
 }
+SOURCES = {"expand_request": "request_record"}   # where not the wrapper's name
 MODES = (None, "unfused", "layerwise")   # the classify modes of the paths
 RAGGED = (1, 7, 63, 64, 65, 4095)        # ragged sizes replayed in phase 10
 KERNEL_FN = {                    # each wrapper's __global__ function
     "classify_fused": "classify_fused_kernel", "tree_walk": "tree_walk_kernel",
     "tcam_match": "tcam_match_kernel", "forest_vote": "forest_vote_kernel",
-    "svm_lookup": "svm_lookup_kernel", "decode_attn": "attn_"}
+    "svm_lookup": "svm_lookup_kernel", "decode_attn": "attn_",
+    "expand_request": "expand_request_kernel"}
 LOADS = (0.25, 0.5, 0.75, 1.0)   # open-loop offered load / closed-loop rate
 FLEET_SRC, FLEET_DST = "h0_0_0", "h2_0_0"   # phase 12: two pods apart
 FLEET_STAGES = 40                # stage slots a switch: the zoo on 5 hops
@@ -377,13 +384,15 @@ def kernels():
     from repro_torch.kernels.classify_fused import classify_fused
     from repro_torch.kernels.decode_attn import decode_attn
     from repro_torch.kernels.forest_vote import forest_vote
+    from repro_torch.kernels.request_record import expand_request
     from repro_torch.kernels.svm_lookup import svm_lookup
     from repro_torch.kernels.tcam_match import tcam_match
     from repro_torch.kernels.tree_walk import tree_walk
 
     return {"classify_fused": classify_fused, "tree_walk": tree_walk,
             "tcam_match": tcam_match, "forest_vote": forest_vote,
-            "svm_lookup": svm_lookup, "decode_attn": decode_attn}
+            "svm_lookup": svm_lookup, "decode_attn": decode_attn,
+            "expand_request": expand_request}
 
 
 def launches() -> dict:
@@ -407,7 +416,7 @@ def zero_launches() -> None:
 def build_phase():
     from repro_torch.kernels.build import build
 
-    libs = build(*kernels())
+    libs = build(*(SOURCES.get(k, k) for k in kernels()))
     for name, lib in libs.items():
         print(f"built {lib.path.name} in {lib.build_seconds:.2f} s")
         for line in lib.log.splitlines():
@@ -1021,6 +1030,13 @@ def per_classify(mode, prof) -> dict:
                           "svm_lookup": 1}}[mode]
 
 
+def by_record(want: dict) -> dict:
+    """``want`` for a ``ZooServer.classify`` whose features fit a byte on
+    the card: the request staged as a record, one ``expand_request`` ahead
+    of the classify's launches."""
+    return {**want, "expand_request": 1}
+
+
 def checked(fn, want: dict, n_classify: int = 1):
     """Run ``fn`` and check that it launched exactly ``n_classify`` times
     the per-classify launches ``want`` of each kernel, and nothing else."""
@@ -1083,7 +1099,8 @@ def main_path_phase(prof, seed, device, models, programs, test_sets,
     for n in (1, 7, 300, BATCH + 1):
         pbn, Xn, vn, _ = traffic(rng, zoo, test_sets, n)
         mids = pbn.mid.numpy()
-        got = checked(lambda: zoo.classify(Xn, mid=mids, vid=vn), want_n)
+        got = checked(lambda: zoo.classify(Xn, mid=mids, vid=vn),
+                      by_record(want_n))
         want = oracle.classify(zoo.packed, zoo.make_request(Xn, mid=mids,
                                                             vid=vn))
         if not np.array_equal(got, want.rslt.cpu().numpy()):
@@ -1098,7 +1115,8 @@ def main_path_phase(prof, seed, device, models, programs, test_sets,
         if not np.array_equal(g, w.rslt.cpu().numpy()):
             raise AssertionError("classify_coalesced != mode ref")
     print(f"ragged B in (1, 7, 300, {BATCH + 1}): classify and "
-          f"classify_coalesced == mode ref; launches per classify {want_n}")
+          f"classify_coalesced == mode ref; launches per classify "
+          f"{by_record(want_n)} and per coalesced dispatch {want_n}")
     return zoo, pb
 
 
@@ -1599,7 +1617,7 @@ def kernel_resources(libs):
     """Registers, spills and static shared memory of each function of the
     redesigned kernels, from ``nvcc -Xptxas -v``."""
     for name in ("decode_attn", "classify_fused", "tcam_match",
-                 "svm_lookup", "tree_walk", "forest_vote"):
+                 "svm_lookup", "tree_walk", "forest_vote", "request_record"):
         fn = None
         for line in libs[name].log.splitlines():
             if "Compiling entry function" in line:
@@ -1716,6 +1734,8 @@ LIBRARY_NONE = {
                   "over variable-length rows",
     "forest_vote": "torch.searchsorted finds a leaf, but no single call "
                    "also takes the weighted vote",
+    "expand_request": "no PyTorch call widens a byte record into the flat "
+                      "batch's field-major layout",
 }
 
 
@@ -1839,7 +1859,14 @@ def timing_phase(zoos, runtimes, eager_zoos, eager_runtimes, pb, prof,
     from repro_torch.kernels import svm_lookup as svm_module
     from repro_torch.kernels import tcam_match as tcam_module
     from repro_torch.kernels import tree_walk as walk_module
+    from repro_torch.core.packets import flat_size
     from repro_torch.kernels.forest_vote import forest_vote, forest_vote_plain
+    from repro_torch.kernels.request_record import (
+        expand_request,
+        expand_request_plain,
+        record_layout,
+        write_record,
+    )
     from repro_torch.kernels.svm_lookup import svm_lookup, svm_lookup_plain
     from repro_torch.kernels.tcam_match import tcam_match, tcam_match_plain
     from repro_torch.kernels.tree_walk import tree_walk, tree_walk_plain
@@ -1862,6 +1889,24 @@ def timing_phase(zoos, runtimes, eager_zoos, eager_runtimes, pb, prof,
             return c
         return run
 
+    # the main path's request as a record on the card (B 4096, F 60) and
+    # the flat batch it widens into (T 8, H 12)
+    from repro_torch.runtime.staging import Record
+
+    B, F = pb.batch, prof.max_features
+    T, H = prof.max_trees, prof.max_hyperplanes
+    rec = Record(B, F, pin=True)
+    if not write_record(rec, pb.features.numpy(), mid=pb.mid.numpy(),
+                        vid=pb.vid.numpy()):
+        raise AssertionError("the main path's features do not fit a byte")
+    rec_d = rec.buf.to(dev)
+    flat_d = torch.empty(flat_size(B, F, T, H), dtype=torch.int32,
+                         device=dev)
+
+    def expand():
+        expand_request(rec_d, flat_d, B, F, T, H)
+        return flat_d
+
     calls = {
         "classify_fused": (
             lambda: classify_fused(codes, feats, vid, shift, img, C),
@@ -1876,6 +1921,8 @@ def timing_phase(zoos, runtimes, eager_zoos, eager_runtimes, pb, prof,
                         1),
         "svm_lookup": (lambda: svm_lookup(feats, vid, img.svm),
                        lambda: svm_lookup_plain(feats, vid, img.svm), 1),
+        "expand_request": (expand, lambda: expand_request_plain(
+            rec_d, B, F, T, H), 1),
     }
     library = {"svm_lookup": svm_library(img, feats, vid, prof.levels, torch)}
     lib_sums = library["svm_lookup"]().long() & 0xFFFFFFFF
@@ -1883,6 +1930,9 @@ def timing_phase(zoos, runtimes, eager_zoos, eager_runtimes, pb, prof,
                        & 0xFFFFFFFF):
         raise AssertionError("the embedding_bag yardstick computes other sums")
     nbytes = bytes_touched(zoo, pb, prof, torch)
+    # the flat batch written, the record read
+    nbytes["expand_request"] = 4 * flat_size(B, F, T, H) + record_layout(
+        B, F).nbytes
     cyc = sleep_cycles_per_ms(torch)
     B, T, F = pb.batch, prof.max_trees, prof.max_features
     pb_n = packets_per_block(T, F, B, L=L)
@@ -4324,7 +4374,7 @@ def acorn_and_dense(seed, prof, device, libs, main_path, path_launches,
             f"zoo_{mode or 'fused'}",
             lambda mode=mode: main_path_phase(prof, seed, device, models,
                                               programs, test_sets, mode),
-            classify_kernels([mode]))
+            [*classify_kernels([mode]), "expand_request"])
     phase("7 main path: the zoo planned over fat_tree(4), hop by hop")
     runtimes = main_path("multi_switch", lambda: multi_switch_phase(
         prof, device, programs, zoos[None], pb),
@@ -4559,7 +4609,8 @@ def kernels_line(t, path_launches, lm_dtype) -> dict:
                      if k == "decode_attn" else {"atol": 0, "rtol": 0})
                  for k in kernels()}
     tolerance[MXU] = {"bound": "mxu_bound: one bf16 ulp + 2^-7 sum P|V|"}
-    source = {**{k: k for k in kernels()}, MXU: "decode_attn"}
+    source = {**{k: SOURCES.get(k, k) for k in kernels()},
+              MXU: "decode_attn"}
     replaces = {**REPLACES, MXU: REPLACES["decode_attn"]}
     return {"kernels": [{
         "name": name, "route": "cuda",

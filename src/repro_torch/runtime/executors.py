@@ -89,9 +89,11 @@ class HopChain:
     Each hop is one ``_classify_impl`` in the resolved ``mode``
     (``kernels/ops.py``): one launch by default, three in ``"unfused"``,
     L + 2 in ``"layerwise"``; the whole chain is one captured graph per
-    bucket and key.  Each hop is a ``hop`` span (``runtime/trace.py``)
-    where it runs from Python: eagerly, or in a graph's warm-up and
-    capture, not in its replays.
+    bucket and key, and one more where the bucket also takes request
+    records (``classify_record``: ``expand_request`` ahead of the chain).
+    Each hop is a ``hop`` span (``runtime/trace.py``) where it runs from
+    Python: eagerly, or in a graph's warm-up and capture, not in its
+    replays.
     """
 
     granularity = 1
@@ -126,6 +128,15 @@ class HopChain:
     def classify(self, batch: PacketBatch) -> PacketBatch:
         with self._serial:
             return self._cache.run(batch, *self._key())
+
+    def classify_record(self, record: torch.Tensor,
+                        shape: tuple[int, int, int, int]) -> PacketBatch:
+        """``classify`` of the REQUEST batch in a host request record of
+        bucket ``shape`` = (B, F, T, H) (``kernels/request_record.py``):
+        the record entry of the cache, whose graph expands it on the
+        device; the answer is ``classify``'s of the batch it holds."""
+        with self._serial:
+            return self._cache.run_record(record, shape, *self._key())
 
     def _write(self, programs: list[PackedProgram]) -> None:
         """Copy ``programs`` into the first hops' resident programs, in

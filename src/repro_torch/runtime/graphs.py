@@ -22,6 +22,14 @@ hops]), each holding
   copy, before the executor's lock is released: run N's answer is never
   run N + 1's.
 
+A request record (``run_record``: a REQUEST batch staged as its packet
+count, VIDs, MIDs and byte features, ``kernels/request_record.py``) has an
+entry of its own, keyed apart from the flat entry of the same bucket and
+key: a static device record, written by ONE copy from the pinned record,
+and a graph whose first node, the kernel ``expand_request``, writes the
+entry's flat buffer from it; the classify that follows and the copy out are
+the flat entry's.  A bucket that sees both kinds of call holds two entries.
+
 On ``cuda`` an entry is captured on the first call at its key, after an
 eager warm-up run on a side stream that builds and loads the kernels (and
 whose answer is that call's); the buckets of one cache share one memory
@@ -61,6 +69,7 @@ from repro_torch.core.packets import (
     flat_views,
     widths,
 )
+from repro_torch.kernels.request_record import expand_request, record_layout
 from repro_torch.runtime import trace
 
 __all__ = ["GraphCache", "Serial"]
@@ -102,7 +111,7 @@ def _wrappers() -> dict:
 
     return {f.__name__: f for f in (classify_fused, tree_walk, tcam_match,
                                     forest_vote, svm_lookup, decode_attn,
-                                    classify_epilogue)}
+                                    classify_epilogue, expand_request)}
 
 
 def _counted() -> dict[str, int]:
@@ -151,6 +160,24 @@ class _Entry:
                 dst.copy_(src)
 
 
+class _RecordEntry(_Entry):
+    """One key's classify of request records: a static device record,
+    expanded into the static flat buffer ahead of the classify."""
+
+    def __init__(self, body, B: int, F: int, T: int, H: int, device) -> None:
+        super().__init__(body, B, F, T, H, device)
+        self.record = torch.zeros(record_layout(B, F).nbytes,
+                                  dtype=torch.uint8, device=device)
+
+    def stage(self, record: torch.Tensor) -> None:
+        """Copy the host record into the static one: one copy."""
+        self.record.copy_(record, non_blocking=True)
+
+    def compute(self) -> None:
+        expand_request(self.record, self.buf, *self.shape)
+        super().compute()
+
+
 class GraphCache:
     """One captured classify per key (see the module docstring).
 
@@ -175,7 +202,8 @@ class GraphCache:
         return len(self._entries)
 
     def keys(self) -> list[tuple]:
-        """(bucket, F, T, H, *tag, *key) of every entry."""
+        """(bucket, F, T, H, *tag, *key) of every entry; a record entry's
+        ends in ``"record"``."""
         return list(self._entries)
 
     def run(self, batch: PacketBatch, *key) -> PacketBatch:
@@ -188,13 +216,34 @@ class GraphCache:
             return self._body(batch.map(lambda x: x.to(
                 self.device, copy=True, non_blocking=True)), *key)
         shape = (batch.batch, *widths(batch))
-        at = shape + self.tag + key
+        return self._run(_Entry, shape + self.tag + key, shape, batch, key)
+
+    def run_record(self, record: torch.Tensor, shape: tuple, *key
+                   ) -> PacketBatch:
+        """Classify the request in the host ``record`` (uint8, a record of
+        ``kernels/request_record.py`` of a bucket ``shape`` = (B, F, T, H))
+        through the record entry of that shape, the tag and ``key``, as
+        ``run``: the flat batch is expanded on the device.  With graphs off
+        the record is copied and expanded into a batch of its own."""
+        if not self.graphs:
+            flat = torch.empty(flat_size(*shape), dtype=torch.int32,
+                               device=self.device)
+            expand_request(record.to(self.device, non_blocking=True), flat,
+                           *shape)
+            return self._body(flat_views(flat, *shape), *key)
+        return self._run(_RecordEntry, shape + self.tag + key + ("record",),
+                         shape, record, key)
+
+    def _run(self, kind: type, at: tuple, shape: tuple, staged, key: tuple
+             ) -> PacketBatch:
+        """Stage ``staged`` into the entry ``at`` (a ``kind`` made, and
+        captured, on first use), run it, and copy its buffer out."""
         entry = self._entries.get(at)
         fresh = entry is None
         if fresh:
-            entry = _Entry(lambda pb: self._body(pb, *key), *shape,
-                           self.device)
-        entry.stage(batch)
+            entry = kind(lambda pb: self._body(pb, *key), *shape,
+                         self.device)
+        entry.stage(staged)
         if self.device.type != "cuda":
             entry.compute()
         elif fresh:

@@ -1,12 +1,18 @@
-"""Host staging buffers in the flat layout, reused per batch shape.
+"""Host staging buffers, reused per batch shape: flat batches and request
+records.
 
 A host batch bound for an executor is written into one int32 buffer in the
 flat layout (``core/packets.py``), which the executor's graph cache stages
-with one copy (``runtime/graphs.py``).  ``StagingPool`` keeps those buffers
-per (bucket, F, T, H) so that a call writes into memory made once: pinned
-for an executor on ``cuda`` (the copy is asynchronous), plain host memory
-on any other device.  Each buffer's field views, as a ``PacketBatch`` and as
-numpy arrays, are built once, when the buffer is made.
+with one copy (``runtime/graphs.py``).  A REQUEST whose features all fit a
+byte, bound for an executor on the card, is written instead into a
+``Record`` (``kernels/request_record.py``: the packet count, VIDs, MIDs and
+the features as bytes), which the graph cache stages with one copy and
+expands on the card.  ``StagingPool`` keeps those buffers per (bucket, F, T,
+H), and the records per (bucket, F) under keys of their own, so that a call
+writes into memory made once: pinned for an executor on ``cuda`` (the copy
+is asynchronous), plain host memory on any other device.  Each buffer's
+views, as a ``PacketBatch`` and as numpy arrays, are built once, when the
+buffer is made.
 
 Reuse is guarded.  On ``cuda`` a buffer goes back to its pool with an event
 recorded on the caller's stream after the executor has taken it (the
@@ -24,17 +30,18 @@ import numpy as np
 import torch
 
 from repro_torch.core.packets import FIELDS, PacketBatch, flat_size, flat_views
+from repro_torch.kernels.request_record import record_layout
 
-__all__ = ["Staging", "StagingPool"]
+__all__ = ["Staging", "Record", "StagingPool"]
 
 
 class Staging:
     """One flat host buffer of a (B, F, T, H) batch and its views."""
 
-    __slots__ = ("shape", "flat", "batch", "rows", "event")
+    __slots__ = ("shape", "key", "flat", "batch", "rows", "event")
 
     def __init__(self, shape: tuple[int, int, int, int], pin: bool) -> None:
-        self.shape = shape
+        self.shape = self.key = shape
         self.flat = torch.zeros(flat_size(*shape), dtype=torch.int32,
                                 pin_memory=pin)
         self.batch = flat_views(self.flat, *shape)
@@ -47,6 +54,36 @@ class Staging:
         """Zero packets B.. of every field: FORWARD passthrough packets."""
         for a in self.rows:
             a[B:] = 0
+
+    def held_by(self, answer: PacketBatch) -> bool:
+        """Whether a field of ``answer`` is a view of this buffer."""
+        return _holds(answer, self.flat)
+
+
+class Record:
+    """One host request record of a bucket of B packets, F features a
+    packet (``kernels/request_record.py``), and its numpy views: ``n``, the
+    ``vid`` and ``mid`` rows and the ``feats`` bytes ``[B, F]``."""
+
+    __slots__ = ("key", "F", "layout", "buf", "ptr", "n", "vid", "mid",
+                 "feats", "event")
+
+    def __init__(self, B: int, F: int, pin: bool) -> None:
+        self.key = ("record", B, F)
+        self.F = F
+        self.layout = lay = record_layout(B, F)
+        self.buf = torch.zeros(lay.nbytes, dtype=torch.uint8, pin_memory=pin)
+        self.ptr = self.buf.data_ptr()
+        a = self.buf.numpy()
+        self.n = a[:4].view(np.int32)
+        self.vid = a[lay.vid:lay.vid + 4 * B].view(np.int32)
+        self.mid = a[lay.mid:lay.mid + 4 * B].view(np.int32)
+        self.feats = a[lay.feats:lay.feats + B * F].reshape(B, F)
+        self.event = torch.cuda.Event() if pin else None
+
+    def held_by(self, answer: PacketBatch) -> bool:
+        """A classified batch never views a record (it is expanded)."""
+        return False
 
 
 def _holds(answer: PacketBatch, flat: torch.Tensor) -> bool:
@@ -74,26 +111,36 @@ class StagingPool:
         """A buffer of shape (B, F, T, H) that no pending copy reads: a
         free one whose event has completed, else a new one."""
         shape = (B, F, T, H)
+        return self._take(shape) or Staging(shape, self._pin)
+
+    def checkout_record(self, B: int, F: int) -> Record:
+        """A request record of a bucket of B packets, F features a packet,
+        that no pending copy reads, as ``checkout``."""
+        return self._take(("record", B, F)) or Record(B, F, self._pin)
+
+    def _take(self, key: tuple) -> Staging | Record | None:
+        """A free buffer under ``key`` whose event has completed (counted
+        as reused), else None (counted as made: the caller makes one)."""
         with self._lock:
-            free = self._free.get(shape, ())
+            free = self._free.get(key, ())
             for i, s in enumerate(free):
                 if s.event is None or s.event.query():
                     self._reused += 1
                     return free.pop(i)
             self._made += 1
-        return Staging(shape, self._pin)
+        return None
 
-    def release(self, staged: Staging, answer: PacketBatch | None = None
-                ) -> None:
+    def release(self, staged: Staging | Record,
+                answer: PacketBatch | None = None) -> None:
         """Hand ``staged`` back once the executor has taken it, on the
         calling thread, ``answer`` being what the executor returned (None
         if it raised)."""
         if staged.event is not None:
             staged.event.record(torch.cuda.current_stream(self.device))
-        elif answer is not None and _holds(answer, staged.flat):
+        elif answer is not None and staged.held_by(answer):
             return
         with self._lock:
-            self._free.setdefault(staged.shape, []).append(staged)
+            self._free.setdefault(staged.key, []).append(staged)
 
     def stats(self) -> dict[str, int]:
         """``reused``: checkouts that took a buffer back; ``made``: those

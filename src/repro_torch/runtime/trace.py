@@ -21,10 +21,12 @@ collector's pauses are ``gc`` spans under the same rules (a
 ``gc.callbacks`` hook).
 
 The spans: ``classify`` (``ZooServer.classify``, whole), ``request`` (the
-request build: ``make_request``, or ``classify``'s write in place into its
-staging buffer), ``admit`` (admission's pad into the bucket, or
-``classify``'s checkout of a staging buffer and its zero tail), ``executor``
-(the executor's classify: its lock, stage, replay and clone), ``lock`` (the
+request build: ``make_request``, or ``classify``'s write in place: into a
+request record on the card's path, ``kernels/request_record.py``
+``write_record``, else into a flat staging buffer), ``admit``
+(admission's pad into the bucket, or ``classify``'s checkout of a record
+or of a staging buffer and its zero tail), ``executor`` (the executor's
+classify: its lock, stage, replay and clone), ``lock`` (the
 wait for the executor's lock), ``capture`` (a graph captured), ``hop``
 (one hop's classify in an executor's chain, ``HopChain``, where the chain
 runs from Python: eagerly, or in a graph's warm-up and capture; a replay

@@ -70,8 +70,9 @@ class FleetExecutor(HopChain):
 
     Holds the template ``SwitchEngine`` (its profile, mode and device), the
     hop pool, and a live ``down`` set shared with the owning
-    ``FleetRuntime``.  ``classify`` runs the chain over the hosting hops in
-    path order, keyed by their count, after checking that every switch on
+    ``FleetRuntime``.  ``classify`` (and ``classify_record``) runs the
+    chain over the hosting hops in path order, keyed by their count, after
+    checking that every switch on
     the wire path (hosting or not) is alive, and checks again once the
     answer is copied out; a dead one raises ``DeviceFailure`` for the
     control loop.  ``graphs=False`` classifies eagerly (``cache_size()``
@@ -132,8 +133,14 @@ class FleetExecutor(HopChain):
             raise DeviceFailure(dead[0], path=self.wire_path)
 
     def classify(self, batch: PacketBatch) -> PacketBatch:
+        return self._checked(super().classify, batch)
+
+    def classify_record(self, record, shape) -> PacketBatch:
+        return self._checked(super().classify_record, record, shape)
+
+    def _checked(self, classify, *args) -> PacketBatch:
         self._check()
-        out = super().classify(batch)
+        out = classify(*args)
         # a kill that lands mid-chain: the answer is correct (the tables
         # were intact), but real hardware would have dropped the packet at
         # the dead hop — drop it so the retry path runs

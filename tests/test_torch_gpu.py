@@ -48,7 +48,13 @@ predict and result select folded in) on the epilogue's cases of
 ``acorn-zoo4-fattree4``'s five hops: codes, svm_acc and rslt equal mode
 ref on the card and the frozen glue on the CPU, one ``classify_fused``
 launch and no glue run a hop, and a captured replay of the five hops adds
-5 launches and 0 glue runs.
+5 launches and 0 glue runs.  The request record: the native write and
+``expand_request`` against their twins and the flat batch staged today
+(B 4096, F 60, T 8, H 12, n 1 and bucket - 1, buckets below 16), the
+native write's refusals; ``ZooServer.classify`` by the record path on the
+``acorn-zoo4`` zoo and its 5-hop path equal to mode ref, features off a
+byte by the flat path, record and flat calls from three threads at one
+bucket, and 4 host calls a classify.
 """
 import dataclasses
 
@@ -1048,6 +1054,271 @@ def test_a_capture_survives_the_collector_freeing_another_graph(
         gc.set_threshold(*old)
     torch.cuda.synchronize()
     assert (out == -1).all() and zoo.cache_size() == 1 and not graphs
+
+
+# -------------------------------------------------- the request record
+RECORD_SHAPES = [(4096, 4096, 60), (4096, 1, 60), (4096, 4095, 60),
+                 (4096, 2000, 45), (64, 9, 60), (16, 16, 60), (8, 5, 60),
+                 (2, 1, 7), (1, 1, 60)]
+
+
+def _garbage(rng, rec):
+    rec.buf.copy_(torch.from_numpy(
+        rng.integers(0, 256, rec.buf.numel()).astype(np.uint8)))
+    return rec
+
+
+@pytest.mark.parametrize("bucket,n,F", RECORD_SHAPES)
+def test_expand_request_kernel_matches_twin(cuda, bucket, n, F):
+    """The native write and ``expand_request`` on the card, from records
+    that held garbage (B 4096, F 60, T 8, H 12 and the ladder's edges n = 1
+    and n = bucket - 1, buckets below 16 on the scalar path): the record
+    the numpy twin writes, and the flat batch ``pack_flat(make_request)``
+    stages, bit for bit; one launch."""
+    from repro_torch.core.packets import flat_size, pack_flat
+    from repro_torch.kernels.request_record import (
+        expand_request,
+        expand_request_plain,
+        write_record,
+        write_record_plain,
+    )
+    from repro_torch.runtime.staging import Record
+
+    Fmax, T, H = 60, 8, 12
+    rng = np.random.default_rng(bucket * 7 + n)
+    X = rng.integers(0, 256, (n, F)).astype(np.int32)
+    vid = rng.integers(0, 4, n).astype(np.int32)
+    mid = np.asarray([(1, 0, 2, 0)[v] for v in vid], np.int32)
+    native = _garbage(rng, Record(bucket, Fmax, pin=True))
+    twin = _garbage(rng, Record(bucket, Fmax, pin=False))
+    assert write_record(native, X, mid=mid, vid=vid, max_versions=4)
+    assert write_record_plain(twin, X, mid=mid, vid=vid, max_versions=4)
+    assert native.n[0] == twin.n[0] == n
+    for part in ("vid", "mid", "feats"):
+        assert np.array_equal(getattr(native, part)[:n],
+                              getattr(twin, part)[:n]), part
+    dev = torch.zeros(native.buf.numel() + 64, dtype=torch.uint8,
+                      device=cuda)[64:]            # offset 64: aligned
+    dev.copy_(native.buf)
+    flat = torch.full((flat_size(bucket, Fmax, T, H),), 7, dtype=torch.int32,
+                      device=cuda)
+    before = expand_request.launches
+    expand_request(dev, flat, bucket, Fmax, T, H)
+    torch.cuda.synchronize()
+    assert expand_request.launches == before + 1
+    want = torch.zeros(flat.numel(), dtype=torch.int32)
+    pack_flat(PacketBatch.make_request(X, mid=mid, vid=vid, max_features=Fmax,
+                                       n_trees=T, n_hyperplanes=H), bucket,
+              want)
+    assert torch.equal(flat.cpu(), want)
+    assert torch.equal(expand_request_plain(native.buf, bucket, Fmax, T, H),
+                       want)
+
+
+def test_native_write_refuses_as_its_twin(cuda):
+    """The native write refuses a feature outside [0, 255] (-1, 256,
+    INT32_MIN, 2^31 - 1), scalar or strided MIDs and VIDs are read as
+    ``make_request`` reads them, and a VID out of range raises its
+    ``ValueError``."""
+    from repro_torch.kernels.request_record import write_record
+    from repro_torch.runtime.staging import Record
+
+    rng = np.random.default_rng(3)
+    rec = Record(64, 60, pin=True)
+    X = rng.integers(0, 256, (9, 60)).astype(np.int32)
+    for bad in (-1, 256, -2**31, 2**31 - 1):
+        Xb = X.copy()
+        Xb[8, 59] = bad
+        assert not write_record(rec, Xb, mid=0, vid=0, max_versions=4)
+    vid = rng.integers(0, 4, 18).astype(np.int32)[::2]
+    assert write_record(rec, X, mid=2, vid=vid, max_versions=4)
+    assert np.array_equal(rec.vid[:9], vid) and (rec.mid[:9] == 2).all()
+    for bad in (np.asarray([0] * 8 + [4], np.int32), -1):
+        with pytest.raises(ValueError) as built:
+            PacketBatch.make_request(X, vid=bad, max_features=60,
+                                     max_versions=4)
+        with pytest.raises(ValueError) as written:
+            write_record(rec, X, vid=bad, max_versions=4)
+        assert str(written.value) == str(built.value)
+
+
+@pytest.fixture(scope="module")
+def bench_zoos():
+    """The benchmark's ``acorn-zoo4`` and ``acorn-zoo4-fattree4``
+    deployments on the card (``portbench.deploy.build``), built once."""
+    import json
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from portbench import deploy
+
+    out = {}
+    for config in ("acorn-zoo4", "acorn-zoo4-fattree4"):
+        cfg = json.loads((lane.ROOT / "portbench" / "configs" /
+                          f"{config}.json").read_text())
+        out[config] = deploy.build(cfg, 2**31 + 41, "cuda", root=lane.ROOT)
+    return out
+
+
+def _bench_request(dep, rng, B):
+    from portbench import deploy
+
+    vid = rng.integers(0, dep.profile.max_versions, B).astype(np.int32)
+    return (deploy.rows_for(dep, rng, vid),
+            np.asarray([dep.mids[v] for v in vid], np.int32), vid)
+
+
+def _ref_answer(zoo, X, mid, vid):
+    """The request through every hop of the zoo's executor in mode ref."""
+    ex, prof = zoo.executor, zoo.profile
+    pb = zoo.make_request(X, mid=mid, vid=vid).to("cuda")
+    for packed in getattr(ex, "programs", None) or (ex.packed,):
+        pb = _classify_impl(packed, pb, n_classes=prof.max_classes,
+                            mode="ref")
+    return pb
+
+
+def _same(got, want):
+    for f in ("packet_id", "ptype", "mid", "vid", "rslt", "rid", "features",
+              "codes", "svm_acc"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("config", ["acorn-zoo4", "acorn-zoo4-fattree4"])
+def test_zoo_classify_takes_the_record_path(cuda, bench_zoos, config):
+    """``ZooServer.classify`` on the benchmark's zoo and on its 5-hop path:
+    byte features go as a request record (``request_stats()["record"]``),
+    one ``expand_request`` launch a call, and every field equals mode ref,
+    at B 4096, 4095, 1 and 300, per-packet and scalar MID / VID."""
+    from repro_torch.kernels.request_record import expand_request
+
+    dep = bench_zoos[config]
+    zoo = dep.zoo
+    rng = np.random.default_rng(12)
+    before = zoo.runtime.request_stats()
+    launches = expand_request.launches
+    calls = 0
+    for B in (4096, 4095, 1, 300):
+        X, mid, vid = _bench_request(dep, rng, B)
+        for m, v in ((mid, vid), (int(mid[0]), int(vid[0]))):
+            got = zoo.classify(X, mid=m, vid=v, device_out=True)
+            _same(got, _ref_answer(zoo, X, m, v))
+            assert np.array_equal(zoo.classify(X, mid=m, vid=v),
+                                  got.rslt.cpu().numpy())
+            calls += 2
+    torch.cuda.synchronize()
+    after = zoo.runtime.request_stats()
+    assert after["record"] - before["record"] == calls
+    assert after["flat"] == before["flat"]
+    assert expand_request.launches - launches == calls
+
+
+def test_features_off_a_byte_take_the_flat_path(cuda, bench_zoos):
+    """Features outside [0, 255] go by the flat buffer, counted as
+    ``flat``, their answers mode ref's; a VID out of range raises
+    ``make_request``'s ``ValueError``, and the record goes back to the
+    pool (the next call reuses it)."""
+    dep = bench_zoos["acorn-zoo4"]
+    zoo = dep.zoo
+    rng = np.random.default_rng(13)
+    X, mid, vid = _bench_request(dep, rng, 700)
+    for bad in (-1, 256, -2**31, 2**31 - 1):
+        Xb = X.copy()
+        Xb[rng.integers(0, 700, 5), rng.integers(0, 60, 5)] = bad
+        before = zoo.runtime.request_stats()
+        got = zoo.classify(Xb, mid=mid, vid=vid, device_out=True)
+        _same(got, _ref_answer(zoo, Xb, mid, vid))
+        after = zoo.runtime.request_stats()
+        assert (after["flat"] - before["flat"],
+                after["record"] - before["record"]) == (1, 0)
+    zoo.classify(X, mid=mid, vid=vid)
+    torch.cuda.synchronize()
+    bad_vid = vid.copy()
+    bad_vid[3] = 4
+    with pytest.raises(ValueError) as built:
+        zoo.make_request(X, mid=mid, vid=bad_vid)
+    with pytest.raises(ValueError) as written:
+        zoo.classify(X, mid=mid, vid=bad_vid)
+    assert str(written.value) == str(built.value)
+    torch.cuda.synchronize()
+    stats = zoo.runtime.staging_stats()
+    zoo.classify(X, mid=mid, vid=vid)
+    again = zoo.runtime.staging_stats()
+    assert (again["reused"] - stats["reused"], again["made"]) == \
+        (1, stats["made"])
+
+
+def test_record_and_flat_calls_interleaved_from_threads(cuda, bench_zoos):
+    """Record calls, flat calls (features off a byte) and ``run_host`` of a
+    ``make_request`` batch at one bucket from three threads at once, the
+    card held busy first: every answer its own mode-ref one; the bucket
+    holds its two entries."""
+    import threading
+
+    dep = bench_zoos["acorn-zoo4"]
+    zoo = ZooServer(dep.profile, executor=SingleSwitchExecutor(
+        dep.profile, packed=dep.zoo.packed))
+    rng = np.random.default_rng(14)
+    cases = []
+    for i, B in enumerate((300, 257, 512, 400, 301, 511)):   # bucket 512
+        X, mid, vid = _bench_request(dep, rng, B)
+        if i % 2:
+            X[0, 0] = 256 + i
+        cases.append((X, mid, vid,
+                      _ref_answer(zoo, X, mid, vid).rslt.cpu().numpy()))
+    for X, mid, vid, want in cases:
+        assert np.array_equal(zoo.classify(X, mid=mid, vid=vid), want)
+    errors = []
+
+    def worker(kind):
+        try:
+            for _ in range(10):
+                for X, mid, vid, want in cases:
+                    if kind == "host":
+                        got = zoo.runtime.run_host(zoo.make_request(
+                            X, mid=mid, vid=vid)).rslt.numpy()
+                    else:
+                        got = zoo.classify(X, mid=mid, vid=vid)
+                    if not np.array_equal(got, want):
+                        errors.append((kind, len(X)))
+        except Exception as e:   # reported below
+            errors.append(e)
+    torch.cuda._sleep(200_000_000)
+    threads = [threading.Thread(target=worker, args=(k,))
+               for k in ("classify", "classify", "host")]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    assert not any(th.is_alive() for th in threads)
+    assert errors == []
+    assert zoo.cache_size() == 2
+    stats = zoo.runtime.request_stats()
+    assert stats["record"] > 0 and stats["flat"] > 0
+
+
+def test_a_record_classify_makes_four_host_calls(cuda, bench_zoos):
+    """One copy in, one graph launch, the clone and the copy out: the
+    host's calls that put work on the card a warmed ``classify`` are 4, as
+    the benchmark's ``host_calls_per_classify.bulk`` counts them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dep = bench_zoos["acorn-zoo4"]
+    rng = np.random.default_rng(15)
+    X, mid, vid = _bench_request(dep, rng, 4096)
+    for _ in range(3):
+        dep.zoo.classify(X, mid=mid, vid=vid)
+    torch.cuda.synchronize()
+    n = 20
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            dep.zoo.classify(X, mid=mid, vid=vid)
+        torch.cuda.synchronize()
+    calls = sum(e.count for e in prof.key_averages()
+                if e.key.startswith(("cudaGraphLaunch", "cudaLaunchKernel",
+                                     "cudaMemcpyAsync")))
+    assert calls == 4 * n
 
 
 # ------------------------------------------------------ the fleet (slice 8)

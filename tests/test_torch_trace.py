@@ -247,6 +247,7 @@ def test_no_capture_after_warm(device):
     spans = {}
     with trace.recording(spans):
         z.runtime.warm(passthrough, 64)
+        z.runtime.warm_requests(64, z.row_widths)
     assert ("capture" in spans) == (device == "cuda")
     after = _events(lambda: [z.classify(_features(n), mid=0, vid=0)
                              for n in (1, 3, 33, 64)])

@@ -3,19 +3,23 @@
 on one CUDA card.
 
     python3 tools/classify_ab.py --other DIR [--rounds 24] [--calls 1000]
+        [--workload zoo4-b4096]
 
 Loads the port from this tree's ``src/`` and from ``DIR/src`` (an unpacked
 older commit) as two sets of modules, and makes one of them the process's
-``repro_torch`` at a time.  Each builds the benchmark's ``acorn-zoo4`` zoo
-from ``--seed`` (``portbench.deploy.build``) and warms a pool of 32
-``zoo4-b4096`` batches (``portbench`` traffic ``b4096``); both trees must
-answer every batch alike.  Then ``--rounds`` rounds, the trees' order
+``repro_torch`` at a time.  Each builds the zoo of the benchmark cell
+``--workload`` (``zoo4-b4096`` by default, or ``fattree4-b4096``) from
+``--seed`` (``portbench.deploy.build``) and warms the cell's pool of 32
+batches (``portbench`` traffic ``b4096``); both trees must answer every
+batch alike.  Then ``--rounds`` rounds, the trees' order
 alternating (ABBA), each ``--calls`` back-to-back ``ZooServer.classify``
-calls of a tree timed by the host clock.  Last, one warmed ``zoo4-b4096``
-window of ``--window`` s through the benchmark's own closed loop, per tree,
-with the staging pool's counters read around it where the tree has them
-(``DataplaneRuntime.staging_stats``).  Prints one JSON line: us a call per
-round and tree, the pairs' differences, and the counters.  Needs one card;
+calls of a tree timed by the host clock.  Last, one warmed window of
+``--window`` s through the benchmark's own closed loop, per tree, with the
+staging pool's and the request paths' counters read around it where the
+tree has them (``DataplaneRuntime.staging_stats``, ``request_stats``), and
+the program's spans summed over it, untraced (``runtime/trace.py``
+``recording``).  Prints one JSON line: us a call per round and tree, the
+pairs' differences, the counters and the spans' us a call.  Needs one card;
 imports nothing of JAX.
 """
 from __future__ import annotations
@@ -65,6 +69,8 @@ def main(argv=None) -> int:
     ap.add_argument("--calls", type=int, default=1000)
     ap.add_argument("--window", type=float, default=20.0)
     ap.add_argument("--seed", type=int, default=2147483901)
+    ap.add_argument("--workload", default="zoo4-b4096",
+                    choices=("zoo4-b4096", "fattree4-b4096"))
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -77,7 +83,7 @@ def main(argv=None) -> int:
     from portbench import deploy, spec
 
     bench = spec.load(ROOT)
-    cell = spec.workload(bench, "zoo4-b4096")
+    cell = spec.workload(bench, args.workload)
     config = spec.config(bench, cell["config"], ROOT)
     mix = spec.traffic(cell["traffic"], ROOT)
     trees = {"this": ROOT / "src", "other": Path(args.other) / "src"}
@@ -118,16 +124,21 @@ def main(argv=None) -> int:
     for name in trees:
         mods, dep, drv = side[name]
         _activate(mods)
-        stats = getattr(dep.zoo.runtime, "staging_stats", None)
-        before = stats() if stats else None
-        out = drv.window(args.window, None)
+        reads = {k: getattr(dep.zoo.runtime, f"{k}_stats", None)
+                 for k in ("staging", "request")}
+        before = {k: f() for k, f in reads.items() if f}
+        spans = {}
+        with mods[PREFIX + ".runtime.trace"].recording(spans):
+            out = drv.window(args.window, None)
         counters[name] = {
             "calls": out.attempted, "failed": out.failed,
             "packets_per_s": out.packets / out.seconds,
-            "staging_before": before, "staging_after": stats() if stats
-            else None}
+            "span_us_per_call": {k: v / out.attempted * 1e6
+                                 for k, v in sorted(spans.items())},
+            **{f"{k}_before": v for k, v in before.items()},
+            **{f"{k}_after": f() for k, f in reads.items() if f}}
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0),
+        "device": torch.cuda.get_device_name(0), "workload": args.workload,
         "rounds": args.rounds, "calls": args.calls,
         "us_per_call": us,
         "quartiles_us": {k: _quartiles(v) for k, v in us.items()},
